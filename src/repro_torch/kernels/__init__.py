@@ -6,3 +6,5 @@
 #
 #   flash_attention/   blockwise causal/window/softcap GQA prefill attention
 #   decode_attention/  flash-decoding against a KV cache (split + merge)
+#   persistent/        the drain megakernel (K1/K2) and the legacy work-queue
+#                      executor (K3) over 128x128 f32 tile workspaces
