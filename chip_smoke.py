@@ -13,13 +13,21 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    (max abs error within the stated tolerance), with the kernel's, the plain
    version's and a library call's time, and the least time the card could
    take for the same work;
+   The SSD chunk kernel (K6) likewise, at the serve shape (a 17-token
+   chunk), at B=1 S=2048 (8 chunks of 256) and at B=4 S=256, printing the
+   largest |want| beside the error;
 4. serve: ``repro_torch.launch.serve.main`` on llama3-8b at full width
    (32 layers, d=4096, vocab 128256, bf16, random weights from the seed),
    4 requests x 8 new tokens, once with host prefill and once with chunked
    prefill; kernel launch counters are zeroed just before each run and read
    just after. Then one prefill + one decode step through the kernel path
-   and through the plain-attention path on the same weights: logits agree
-   within a stated bf16 tolerance;
+   and through the plain-kernel path on the same weights: logits agree
+   within a stated bf16 tolerance. Then the same two serve runs on
+   mamba2-780m at full width (48 layers, d=1536, state 128, chunk 256,
+   vocab 50280, tied, bf16): host prefill launches K6 once a layer a
+   prompt, chunked prefill never; its decode step time at 4 slots; and one
+   2048-token prompt (prefill + one decode step) through K6 and through
+   its plain version: logits within a stated tolerance, argmax equal;
 5. tile kernels: the drain megakernel (K1), its flight-recorder variant
    (K2) and the legacy executor (K3) against their plain versions at
    C = 132 clusters (one worker per SM), Q = 64 rows, nbuf = 8 tiles, on a
@@ -87,6 +95,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    ssd_chunk, ssd_chunk_plain)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.system import LkSystem  # noqa: E402
@@ -97,11 +107,17 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 ATOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}   # summation order
 LOGITS_ATOL = 0.25    # kernel vs plain attention through 32 bf16 layers
+SSD_TOL = 1e-4        # K6 vs plain, rtol and atol: f32 sums in another order
+# kernel vs plain SSD through 48 bf16 layers: the f32 sums differ in the
+# last bits, which flips an occasional bf16 rounding of y (one ulp, 2^-8
+# relative) that the next layers carry on
+SSM_LOGITS_ATOL = 0.25
+LONG_PROMPT = 2048
 TILE_TOL = 1e-4      # rtol and atol: f32 sums in another order
 TILE_C, TILE_Q, TILE_NBUF = 132, 64, 8   # one worker per SM of the H100
 DEVICE = torch.device("cuda")
-SERVE_ARGS = ["--arch", "llama3-8b", "--requests", "4", "--max-new", "8",
-              "--max-batch", "4", "--max-seq", "128", "--seed", "0"]
+SERVE_ARGS = ["--requests", "4", "--max-new", "8", "--max-batch", "4",
+              "--max-seq", "128", "--seed", "0"]
 
 KERNELS = {
     "flash_attention": dict(
@@ -114,6 +130,11 @@ KERNELS = {
         source="src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention/kernel.py:23",
         wrapper=decode_attention),
+    "ssd_chunk": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/kernel.py:17",
+        wrapper=ssd_chunk),
     "persistent_drain": dict(
         route="cuda",
         source="src/repro_torch/kernels/persistent/csrc/persistent.cu",
@@ -321,18 +342,18 @@ def kernel_checks() -> dict:
 # phase 4: serve + logits check
 # ---------------------------------------------------------------------------
 
-def serve_run(label: str, extra: list) -> dict:
+def serve_run(arch: str, label: str, extra: list) -> dict:
     zero_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    report = serve.main(SERVE_ARGS + extra)
+    report = serve.main(["--arch", arch] + SERVE_ARGS + extra)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2**30
     ds = report.deadline_stats
     outs = report.outputs
-    log(f"serve[{label}] wall={wall:.1f}s peak_mem={peak:.2f}GiB "
+    log(f"serve[{arch} {label}] wall={wall:.1f}s peak_mem={peak:.2f}GiB "
         f"launches={launches} n={ds['n']} met={ds['met']} "
         f"tokens={sum(len(o) for o in outs)}")
     if len(outs) != 4 or any(len(o) != 8 for o in outs):
@@ -349,7 +370,7 @@ def serve_run(label: str, extra: list) -> dict:
 def logits_check() -> float:
     cfg = get_config("llama3-8b")
     model = build(cfg, device="cuda")
-    plain = build(cfg, device="cuda", plain_attention=True)
+    plain = build(cfg, device="cuda", plain_kernels=True)
     params = model.init(0)
     rng = np.random.default_rng(0)
     prompt = torch.from_numpy(
@@ -377,6 +398,174 @@ def logits_check() -> float:
     gc.collect()
     torch.cuda.empty_cache()
     return max(errs)
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the SSD chunk kernel (K6) vs plain
+# ---------------------------------------------------------------------------
+
+def ssd_chunk_args(B, C, L, H, P, N, rng):
+    """K6's operands made as tests/test_kernels_ssd.py makes them (dt in
+    [1e-3, 0.1], A in [-2, -0.5]), cum formed as ``ssd`` forms it."""
+    S = C * L
+    x = torch.from_numpy(rng.normal(size=(B, S, H, P)).astype(np.float32))
+    dt = torch.from_numpy(rng.uniform(1e-3, 0.1, (B, S, H)).astype(np.float32))
+    A = -torch.from_numpy(rng.uniform(0.5, 2.0, (H,)).astype(np.float32))
+    Bm = torch.from_numpy(rng.normal(size=(B, S, N)).astype(np.float32))
+    Cm = torch.from_numpy(rng.normal(size=(B, S, N)).astype(np.float32))
+    x, dt, A, Bm, Cm = (t.to(DEVICE) for t in (x, dt, A, Bm, Cm))
+    cum = torch.cumsum((dt * A).reshape(B, C, L, H), dim=2)
+    return (x.reshape(B, C, L, H, P), dt.reshape(B, C, L, H), cum,
+            Bm.reshape(B, C, L, N), Cm.reshape(B, C, L, N))
+
+
+def ssd_work(B, C, L, H, P, N) -> tuple[float, float]:
+    """(bytes, operations): each input read and each output written once;
+    the causal lower triangle of the intra-chunk product and G = C B^T once
+    per (b, c), plus the chunk-end states' (P x L)(L x N) per head."""
+    nbytes = 4.0 * (2 * B * C * L * H * P + 2 * B * C * L * H
+                    + 2 * B * C * L * N + B * C * H * P * N)
+    ops = 2.0 * B * C * (L * (L + 1) / 2 * (N + H * P) + H * L * P * N)
+    return nbytes, ops
+
+
+def ssd_case(name, B, C, L, H, P, N, rng) -> dict:
+    args = ssd_chunk_args(B, C, L, H, P, N, rng)
+    got = ssd_chunk(*args)
+    want = ssd_chunk_plain(*args)
+    torch.cuda.synchronize()
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    scale = max(float(w.abs().max()) for w in want)
+    ok = all(bool(torch.allclose(g, w, rtol=SSD_TOL, atol=SSD_TOL))
+             for g, w in zip(got, want))
+    ms = time_ms(lambda: ssd_chunk(*args))
+    eager_ms = host_ms(lambda: ssd_chunk(*args))
+    plain_ms = time_ms(lambda: ssd_chunk_plain(*args), iters=3)
+    return dict(kernel="ssd_chunk", case=name, max_abs_err=err, scale=scale,
+                ok=ok, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                library_ms=None,
+                **bound(*ssd_work(B, C, L, H, P, N), torch.float32))
+
+
+def ssd_split_us(args, calls: int = 10) -> dict:
+    """Device time of K6's two kernels per call, from ``torch.profiler``:
+    {kernel name: us}; empty when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            ssd_chunk(*args)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"ssd_(intra|state)_kernel(<\d+>)?", e.key)
+        if m and e.self_device_time_total > 0:
+            out[m.group(0)] = e.self_device_time_total / calls
+    return out
+
+
+def ssd_checks() -> dict:
+    """K6 against its plain version at the serve shape (one 17-token
+    chunk, mamba2-780m's 48 heads x 64 x state 128), at B=1 S=2048 and at
+    B=4 S=256 (chunks of 256)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(3)
+    rows = [ssd_case("B1_C1_L17_serve", 1, 1, 17, 48, 64, 128, rng),
+            ssd_case("B1_S2048_C8_L256", 1, 8, 256, 48, 64, 128, rng),
+            ssd_case("B4_S256_C1_L256", 4, 1, 256, 48, 64, 128, rng)]
+    for r in rows:
+        log(f"check ssd_chunk {r['case']:18s} max_abs_err={r['max_abs_err']:.3e} "
+            f"max|want|={r['scale']:.3g} allclose(rtol=atol={SSD_TOL:.0e})="
+            f"{r['ok']} kernel_ms={r['ms']:.4f} eager_call_ms="
+            f"{r['eager_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"library_ms=n/a bound_ms={r['bound_ms']:.5f} ({r['bound_by']}; "
+            f"bytes {r['bytes_ms']:.5f}, ops {r['ops_ms']:.5f})")
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise SystemExit(f"ssd_chunk disagrees with its plain version: {bad}")
+    for r, shape in zip(rows, ((1, 1, 17), (1, 8, 256))):
+        split = ssd_split_us(ssd_chunk_args(*shape, 48, 64, 128, rng))
+        log(f"ssd_chunk {r['case']} device time by kernel (torch.profiler): "
+            + (" ".join(f"{k}={v:.1f}us" for k, v in split.items())
+               or "not measured (no device time recorded)"))
+    return {"serve": rows[0], "s2048": rows[1],
+            "max_abs_err": max(r["max_abs_err"] for r in rows)}
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: mamba2-780m decode step and a long prompt
+# ---------------------------------------------------------------------------
+
+def ssm_decode_step_ms(model, params, steps: int = 10) -> list:
+    """Host-clock time of synchronized decode steps at 4 slots, after two
+    warm-up steps (the serve runs' batch)."""
+    caches = model.init_caches(4, 128)
+    tok = torch.zeros((4, 1), dtype=torch.int32, device=DEVICE)
+    out = []
+    for i in range(steps + 2):
+        pos = torch.full((4,), i, dtype=torch.int32, device=DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.decode_step(params, caches, tok, pos)
+        tok = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        if i >= 2:
+            out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def ssm_long_prompt_check() -> dict:
+    """mamba2-780m at full width: the 4-slot decode step time, then one
+    2048-token prompt (prefill + one decode step) through K6 and through
+    its plain version on the same weights."""
+    cfg = get_config("mamba2-780m")
+    model = build(cfg, device="cuda")
+    plain = build(cfg, device="cuda", plain_kernels=True)
+    params = model.init(0)
+    steps = ssm_decode_step_ms(model, params)
+    log(f"mamba2-780m decode step, 4 slots: mean {np.mean(steps):.2f} ms "
+        f"min {min(steps):.2f} max {max(steps):.2f} ({len(steps)} steps, "
+        f"host clock, synchronized)")
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, LONG_PROMPT)).astype(np.int32)).to(DEVICE)
+    out, times, launches = {}, {}, {}
+    for name, m in (("kernel", model), ("plain", plain)):
+        m.prefill(params, {"tokens": prompt}, LONG_PROMPT + 1)   # warm-up
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits0, caches = m.prefill(params, {"tokens": prompt},
+                                    LONG_PROMPT + 1)
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        launches[name] = ssd_chunk.launches
+        nxt = torch.argmax(logits0[:, -1], dim=-1).to(torch.int32)[:, None]
+        logits1, _ = m.decode_step(params, caches, nxt, torch.tensor(
+            [LONG_PROMPT], dtype=torch.int32, device=DEVICE))
+        out[name] = (logits0.float(), logits1.float())
+    torch.cuda.synchronize()
+    errs = [float((a - b).abs().max())
+            for a, b in zip(out["kernel"], out["plain"])]
+    scale = float(out["plain"][0].abs().max())
+    same = [bool((a.argmax(-1) == b.argmax(-1)).all())
+            for a, b in zip(out["kernel"], out["plain"])]
+    log(f"mamba2-780m {LONG_PROMPT}-token prompt, K6 vs plain SSD: prefill "
+        f"max_abs_err={errs[0]:.3e} decode max_abs_err={errs[1]:.3e} "
+        f"(|logits| max {scale:.2f}, tol {SSM_LOGITS_ATOL}) argmax_equal="
+        f"{same} prefill_ms kernel={times['kernel']:.2f} "
+        f"plain={times['plain']:.2f} ssd_chunk launches kernel="
+        f"{launches['kernel']} plain={launches['plain']}")
+    if max(errs) > SSM_LOGITS_ATOL or not all(same) or \
+            not all(math.isfinite(e) for e in errs):
+        raise SystemExit("mamba2 K6-path logits disagree with the plain path")
+    if launches["kernel"] != cfg.num_layers or launches["plain"] != 0:
+        raise SystemExit(f"long prompt: ssd_chunk launches {launches}")
+    del params, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(decode_step_ms=steps, prefill_ms=times, err=max(errs))
 
 
 # ---------------------------------------------------------------------------
@@ -884,15 +1073,25 @@ def main(argv=None) -> int:
                 log(f"ptxas {src.stem} {fn}: {line.split(':', 1)[-1].strip()}")
 
     checks = kernel_checks()
-    host = serve_run("host_prefill", [])
-    chunked = serve_run("chunked_prefill", ["--chunked-prefill",
-                                            "--prefill-chunk", "8"])
+    ssd = ssd_checks()
+    chunked_args = ["--chunked-prefill", "--prefill-chunk", "8"]
+    host = serve_run("llama3-8b", "host_prefill", [])
+    chunked = serve_run("llama3-8b", "chunked_prefill", chunked_args)
     missing = [n for n in ATTENTION if host[n] == 0]
     if chunked["decode_attention"] == 0:
         missing.append("decode_attention (chunked prefill)")
     if missing:
         raise SystemExit(f"main path never launched: {missing}")
     logits_check()
+    ssm_host = serve_run("mamba2-780m", "host_prefill", [])
+    ssm_chunked = serve_run("mamba2-780m", "chunked_prefill", chunked_args)
+    layers = get_config("mamba2-780m").num_layers
+    if ssm_host["ssd_chunk"] != layers * 4 or ssm_chunked["ssd_chunk"]:
+        raise SystemExit(
+            f"mamba2 serve: ssd_chunk launches {ssm_host['ssd_chunk']} on "
+            f"host prefill (want {layers} layers x 4 prompts), "
+            f"{ssm_chunked['ssd_chunk']} on chunked prefill (want 0)")
+    ssm_long = ssm_long_prompt_check()
 
     tiles = tile_kernel_checks()
     paths = {}
@@ -911,6 +1110,18 @@ def main(argv=None) -> int:
         if name in ATTENTION:
             row, launches = checks[name], host[name]
             extra["launches_chunked_prefill"] = chunked[name]
+        elif name == "ssd_chunk":
+            # launches on mamba2-780m's serve runs; times at the serve
+            # shape, the 2048-token shape beside them
+            row, launches = ssd["serve"], ssm_host[name]
+            extra["launches_chunked_prefill"] = ssm_chunked[name]
+            extra["shape"] = row["case"]
+            big = ssd["s2048"]
+            extra["at_" + big["case"]] = {
+                k: big[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}
+            extra["long_prompt_prefill_ms"] = ssm_long["prefill_ms"]
+            row = dict(row, max_abs_err=ssd["max_abs_err"])
         else:
             # times at the shape the path launches; the 132-cluster
             # launch of the same kernel beside them

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Where a full-width decode step of the PyTorch port spends its time.
 
-    python3 scripts/profile_decode.py [--steps 8] [--trace PATH]
+    python3 scripts/profile_decode.py [--arch llama3-8b] [--steps 8]
+                                      [--trace PATH]
 
-Serves llama3-8b at full width (random weights from seed 0) through
+Serves ``--arch`` (llama3-8b or mamba2-780m) at full width (random
+weights from seed 0) through
 ``repro_torch.serving.ServingEngine`` on one GPU: 4 slots, 128-position
 cache, 4 host-prefilled requests. After warm-up it times ``--steps`` decode
 steps on the host clock (each ``engine.step()`` ends with the step's
@@ -32,6 +34,7 @@ from repro_torch.serving import ServingEngine  # noqa: E402
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="llama3-8b")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--trace", default=None,
                     help="also write a Chrome trace of the profiled steps")
@@ -39,7 +42,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_decode: needs a CUDA device", file=sys.stderr)
         return 2
-    cfg = get_config("llama3-8b")
+    cfg = get_config(args.arch)
     model = build(cfg, device="cuda")
     params = model.init(0)
     engine = ServingEngine(model, params, max_batch=4, max_seq=128,

@@ -6,5 +6,7 @@
 #
 #   flash_attention/   blockwise causal/window/softcap GQA prefill attention
 #   decode_attention/  flash-decoding against a KV cache (split + merge)
+#   ssd_scan/          Mamba2 SSD intra-chunk output and chunk-end states
+#                      (K6); ops.ssd adds the inter-chunk recurrence
 #   persistent/        the drain megakernel (K1/K2) and the legacy work-queue
 #                      executor (K3) over 128x128 f32 tile workspaces

@@ -4,7 +4,8 @@ the port of ``repro.models.layers``.
 Parameters keep the reference's tree and axis layouts (``w_in (d, d_ff)``,
 ``table (V, d)``, ...), so converting a JAX parameter tree is a per-leaf
 copy. ``Init`` replaces the reference's ``Builder`` with the same scales
-(normal with 1/sqrt(fan_in), 0.02 for the embedding, ones for norms) but
+(normal with 1/sqrt(fan_in), 0.02 for the embedding, ones for norms,
+uniform in [-scale, scale) for the SSM conv weights) but
 draws from a ``torch.Generator`` on the target device, so full-width
 weights are made where they live.
 """
@@ -37,6 +38,12 @@ class Init:
             return torch.zeros(shape, dtype=dtype, device=self.device)
         if init == "ones":
             return torch.ones(shape, dtype=dtype, device=self.device)
+        if init == "uniform":
+            # [-scale, scale), scale 1 when not given
+            s = scale if scale is not None else 1.0
+            x = torch.rand(shape, generator=self.gen, dtype=torch.float32,
+                           device=self.device)
+            return (x * (2 * s) - s).to(dtype)
         if init != "normal":
             raise ValueError(init)
         if scale is None:

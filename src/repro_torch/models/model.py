@@ -1,4 +1,5 @@
-"""Model bundle — the port of ``repro.models.model`` (dense family).
+"""Model bundle — the port of ``repro.models.model`` (dense and ssm
+families).
 
 ``build(cfg, device=...)`` returns a ``Model`` whose methods are plain
 functions on tensors:
@@ -53,14 +54,13 @@ def params_from_jax(np_tree, cfg: ModelConfig, device) -> dict:
 
 
 def build(cfg: ModelConfig, ctx: ShardCtx | None = None, *,
-          device="cuda", plain_attention: bool = False) -> Model:
+          device="cuda", plain_kernels: bool = False) -> Model:
     """``device`` defaults to CUDA and raises when CUDA is absent.
-    ``plain_attention=True`` runs attention through the kernels' plain
-    PyTorch versions on any device (the reference path for checks)."""
+    ``plain_kernels=True`` runs attention (K4/K5) and the SSD chunk (K6)
+    through the kernels' plain PyTorch versions on any device (the
+    reference path for checks)."""
     cfg.validate()
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"the {cfg.family} family is not ported yet (dense only)")
+    tfm.period_spec(cfg)          # raises for a family not ported yet
     device = check_device(device)
     ctx = ctx or ShardCtx.single()
     dtype = getattr(torch, cfg.dtype)
@@ -87,18 +87,26 @@ def build(cfg: ModelConfig, ctx: ShardCtx | None = None, *,
         pos = torch.arange(S, device=tokens.device)[None].expand(B, S)
         x, _, caches = tfm.forward_stack(params["stack"], x, cfg, ctx,
                                          mode="prefill", pos=pos,
-                                         plain=plain_attention)
+                                         plain=plain_kernels)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = unembed(params["embed"], x[:, -1:, :], cfg.tie_embeddings,
                          cfg.logit_softcap, ctx)
         return logits, _pad_prefill_caches(caches, max_seq)
 
     def _pad_prefill_caches(caches, max_seq):
-        # attn kv from prefill are (P,B,S,H,D): pad the seq dim to max_seq
-        def pad(c):
-            return F.pad(c, (0, 0, 0, 0, 0, max_seq - c.shape[2])) \
-                if c.shape[2] < max_seq else c
-        return tree_map(pad, caches)
+        # attention K/V from prefill are (P,B,S,H,D): pad the seq dim to
+        # max_seq. SSM states are fixed-size and 'cross' caches (encdec)
+        # full-length: neither is padded.
+        def fix(tree):
+            if isinstance(tree, dict) and set(tree) == {"k", "v"}:
+                return {kk: F.pad(c, (0, 0, 0, 0, 0, max_seq - c.shape[2]))
+                        if c.shape[2] < max_seq else c
+                        for kk, c in tree.items()}
+            if isinstance(tree, dict):
+                return {kk: vv if kk == "cross" else fix(vv)
+                        for kk, vv in tree.items()}
+            return tree
+        return fix(caches)
 
     def decode_step(params, caches, tokens, positions):
         """tokens: (B,1) int32; positions: (B,) int32 write index of this
@@ -108,7 +116,7 @@ def build(cfg: ModelConfig, ctx: ShardCtx | None = None, *,
         x, _, caches = tfm.forward_stack(
             params["stack"], x, cfg, ctx, mode="decode",
             pos=positions[:, None], caches=caches, valid_len=valid_len,
-            plain=plain_attention)
+            plain=plain_kernels)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = unembed(params["embed"], x, cfg.tie_embeddings,
                          cfg.logit_softcap, ctx)

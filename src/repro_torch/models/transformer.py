@@ -1,11 +1,11 @@
-"""Decoder-only transformer assembly, dense family — the port of
+"""Decoder-only stack assembly, dense and ssm families — the port of
 ``repro.models.transformer``.
 
 Parameters keep the reference's stacked layout (``stack["blk{i}"]`` leaves
 carry a leading layers axis), but the reference's ``lax.scan`` over that
 axis becomes a Python loop over the layer index ``li``. Decode writes each
-layer's new K/V into the caches IN PLACE at the token's position; the
-reference threads updated copies through the scan carry.
+layer's new K/V (or SSM state) into the caches IN PLACE; the reference
+threads updated copies through the scan carry.
 """
 from __future__ import annotations
 
@@ -13,7 +13,9 @@ from typing import Any
 
 import torch
 
+from repro_torch.core.persistent import tree_map
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (Init, apply_rope, mlp_apply,
                                        mlp_params, rms_norm)
 
@@ -22,10 +24,16 @@ from repro_torch.models.layers import (Init, apply_rope, mlp_apply,
 # Period spec
 # ---------------------------------------------------------------------------
 
+PORTED_FAMILIES = ("dense", "ssm")
+
+
 def period_spec(cfg) -> list[tuple[str, dict]]:
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"the {cfg.family} family is not ported yet (dense only)")
+            f"the {cfg.family} family is not ported yet (have "
+            f"{', '.join(PORTED_FAMILIES)})")
+    if cfg.family == "ssm":
+        return [("ssm", {})]
     if cfg.local_global_interleave == 2:
         return [("attn_mlp", {"local": True}), ("attn_mlp", {"local": False})]
     return [("attn_mlp", {})]
@@ -44,6 +52,10 @@ def num_periods(cfg) -> int:
 def layer_params(b: Init, cfg, kind: str):
     d = cfg.d_model
     p: dict[str, Any] = {}
+    if kind == "ssm":
+        p["ln"] = b.p((d,), init="ones")
+        p["ssm"] = ssm_mod.ssm_params(b, cfg)
+        return p
     p["ln_attn"] = b.p((d,), init="ones")
     p["attn"] = attn.attn_params(b, d, cfg.num_heads, cfg.num_kv_heads,
                                  cfg.resolved_head_dim, cfg.qkv_bias)
@@ -95,6 +107,14 @@ def _ffn_sub(p, x, cfg, ctx):
 def layer_apply(p, x, cfg, ctx, kind: str, opts: dict, *, mode: str, pos,
                 cache=None, valid_len=None, plain: bool = False):
     """Returns (x, aux, new_cache)."""
+    if kind == "ssm":
+        h = rms_norm(x, p["ln"], cfg.norm_eps)
+        if mode == "decode":
+            o, state = ssm_mod.ssm_block_decode(p["ssm"], h, cache, cfg, ctx)
+        else:
+            o, state = ssm_mod.ssm_block(p["ssm"], h, cfg, ctx,
+                                         return_state=True, plain=plain)
+        return x + o, {}, state
     local = bool(opts.get("local", False))
     x, new_cache = _attn_sub(p, x, cfg, ctx, local=local, mode=mode, pos=pos,
                              cache=cache, valid_len=valid_len, plain=plain)
@@ -125,7 +145,8 @@ def forward_stack(params, x, cfg, ctx, *, mode: str, pos,
     """Run the layer stack.
 
     mode='prefill': returns (x, aux, caches) — caches[f'blk{i}'] stacked
-    (P, B, S, Hkv, D);
+    over layers: attention K/V (P, B, S, Hkv, D), SSM state leaves
+    (P, B, ...);
     mode='decode': caches required and updated in place; returns
     (x, aux, caches).
     """
@@ -143,8 +164,7 @@ def forward_stack(params, x, cfg, ctx, *, mode: str, pos,
             per_layer[key].append(nc)
     if mode == "decode":
         return x, {}, caches
-    new_caches = {key: {"k": torch.stack([c["k"] for c in cs]),
-                        "v": torch.stack([c["v"] for c in cs])}
+    new_caches = {key: tree_map(lambda *ls: torch.stack(ls), *cs)
                   for key, cs in per_layer.items()}
     return x, {}, new_caches
 
@@ -159,7 +179,17 @@ def init_caches(cfg, batch: int, max_seq: int, device):
     n = num_periods(cfg)
     hk, dh = cfg.num_kv_heads, cfg.resolved_head_dim
     dt = getattr(torch, cfg.dtype)
-    return {f"blk{i}": {
-        "k": torch.zeros((n, batch, max_seq, hk, dh), dtype=dt, device=device),
-        "v": torch.zeros((n, batch, max_seq, hk, dh), dtype=dt, device=device),
-    } for i in range(len(spec))}
+    caches = {}
+    for i, (kind, _) in enumerate(spec):
+        if kind == "ssm":
+            st = ssm_mod.ssm_init_state(cfg, batch, device)
+            caches[f"blk{i}"] = tree_map(
+                lambda a: a.new_zeros((n,) + tuple(a.shape)), st)
+        else:
+            caches[f"blk{i}"] = {
+                "k": torch.zeros((n, batch, max_seq, hk, dh), dtype=dt,
+                                 device=device),
+                "v": torch.zeros((n, batch, max_seq, hk, dh), dtype=dt,
+                                 device=device),
+            }
+    return caches

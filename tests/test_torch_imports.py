@@ -38,7 +38,8 @@ def test_port_imports_neither_jax_nor_reference():
     for m in ("serving.engine", "kernels.flash_attention.kernel",
               "kernels.persistent.kernel", "kernels.persistent.ops",
               "core.mega", "core.clusters", "core.elastic", "core.system",
-              "system"):
+              "system", "kernels.ssd_scan.kernel", "kernels.ssd_scan.ops",
+              "models.ssm", "configs.mamba2_780m"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -106,10 +107,14 @@ def test_entry_points_raise_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         build(cfg)                                   # the default is cuda
     with pytest.raises(RuntimeError, match="CUDA"):
+        build(get_config("mamba2-780m").reduced())
+    with pytest.raises(RuntimeError, match="CUDA"):
         PersistentRuntime([("nop", lambda s, d: (s, s))],
                           result_template=torch.zeros(1))
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--reduced", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "mamba2-780m", "--reduced", "--requests", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         MegaRuntime()
     with pytest.raises(RuntimeError, match="CUDA"):

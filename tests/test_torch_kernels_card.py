@@ -1,6 +1,6 @@
-"""Prefill (K5) and decode (K4) attention kernels, and the persistent
-tile-op kernels (K1 drain, K2 drain + flight recorder, K3 executor), against
-their plain PyTorch versions, on the card. Every test carries the ``gpu`` marker and
+"""Prefill (K5) and decode (K4) attention kernels, the SSD chunk kernel
+(K6), and the persistent tile-op kernels (K1 drain, K2 drain + flight
+recorder, K3 executor), against their plain PyTorch versions, on the card. Every test carries the ``gpu`` marker and
 skips where CUDA is absent. The module imports neither JAX nor the
 reference package, so it also runs on a GPU host without JAX:
 
@@ -8,7 +8,8 @@ reference package, so it also runs on a GPU host without JAX:
         tests/test_torch_kernels_card.py
 
 Tolerances: bf16 2e-2, f32 1e-4 (the kernels and the plain versions sum
-in different orders); acks, control words, profile rows and ticks exact."""
+in different orders; K6 rtol and atol 1e-4); acks, control words, profile
+rows and ticks exact."""
 import numpy as np
 import pytest
 import torch
@@ -19,6 +20,8 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
+from repro_torch.kernels.ssd_scan import (ssd, ssd_chunk, ssd_chunk_plain,
+                                          ssd_ref)
 
 BF16_ATOL = 2e-2
 
@@ -107,6 +110,81 @@ def test_kernel_wrappers_reject_what_they_cannot_take(cuda):
                                              device=cuda))
     with pytest.raises(TypeError):
         flash_attention(q.half(), k.half(), k.half())
+    args = [t.to(cuda) for t in _ssd_chunk_args(0, 1, 1, 8, 4, 16, 16)]
+    with pytest.raises(TypeError, match="float32"):
+        ssd_chunk(args[0].bfloat16(), *args[1:])
+    x_t = args[0].transpose(3, 4).contiguous().transpose(3, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_chunk(x_t, *args[1:])
+    with pytest.raises(ValueError, match="Bm"):
+        ssd_chunk(*args[:4], args[4][..., :8].contiguous())   # N 16 vs 8
+    x_wide = torch.zeros((1, 1, 8, 4, 128), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        ssd_chunk(x_wide, *args[1:])
+
+
+def _ssd_inputs(seed, B, S, H, P, N):
+    """tests/test_kernels_ssd.py's inputs: dt in [1e-3, 0.1], A in
+    [-2, -0.5]."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    return [torch.from_numpy(a) for a in (
+        rng.normal(size=(B, S, H, P)).astype(f32),
+        rng.uniform(1e-3, 0.1, size=(B, S, H)).astype(f32),
+        -rng.uniform(0.5, 2.0, size=(H,)).astype(f32),
+        rng.normal(size=(B, S, N)).astype(f32),
+        rng.normal(size=(B, S, N)).astype(f32))]
+
+
+def _ssd_chunk_args(seed, B, C, L, H, P, N):
+    """K6's operands as ``ssd`` forms them (cum: in-chunk cumsum of
+    dt * A)."""
+    x, dt, A, Bm, Cm = _ssd_inputs(seed, B, C * L, H, P, N)
+    cum = torch.cumsum((dt * A).reshape(B, C, L, H), dim=2)
+    return (x.reshape(B, C, L, H, P), dt.reshape(B, C, L, H), cum,
+            Bm.reshape(B, C, L, N), Cm.reshape(B, C, L, N))
+
+
+GPU_SSD = [
+    # (B, C, L, H, P, N): the serve shape (ragged L = 17); L = 256 with
+    # C > 1; head counts that are no multiple of the kernel's 8-head block,
+    # with a ragged state width and P < 64, on a grid small enough for one
+    # head a CTA and on one large enough for 8; a one-row chunk
+    (1, 1, 17, 48, 64, 128),
+    (1, 3, 256, 16, 64, 128),
+    (2, 2, 40, 12, 32, 48),
+    (4, 4, 256, 12, 32, 48),
+    (3, 1, 1, 5, 16, 16),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,C,L,H,P,N", GPU_SSD)
+def test_ssd_chunk_kernel_matches_plain_on_card(cuda, B, C, L, H, P, N):
+    args = [t.to(cuda) for t in _ssd_chunk_args(7, B, C, L, H, P, N)]
+    before = ssd_chunk.launches
+    got_y, got_s = ssd_chunk(*args)
+    torch.cuda.synchronize()
+    assert ssd_chunk.launches == before + 1
+    want_y, want_s = ssd_chunk_plain(*args)
+    torch.testing.assert_close(got_y, want_y, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got_s, want_s, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,chunk", [(17, 256), (512, 128)])
+def test_ssd_through_kernel_matches_sequential_oracle_on_card(cuda, S,
+                                                              chunk):
+    """The chunked SSD with K6 (and the inter-chunk recurrence) against
+    the definitional sequential recurrence."""
+    x, dt, A, Bm, Cm = [t.to(cuda) for t in _ssd_inputs(8, 2, S, 8, 64, 32)]
+    before = ssd_chunk.launches
+    y, st = ssd(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_chunk.launches == before + 1
+    want_y, want_st = ssd_ref(x, dt, A, Bm, Cm)
+    torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(st, want_st, atol=1e-4, rtol=1e-4)
 
 
 def _tile_queue(seed, C, Q):

@@ -1,7 +1,7 @@
-"""The port's ServingEngine against the reference's: reduced llama3-8b with
-the reference's parameters converted, 5 requests through 2 slots (slot
-reuse), host prefill and chunked prefill — the generated tokens must be
-identical, request by request."""
+"""The port's ServingEngine against the reference's: reduced llama3-8b and
+mamba2-780m with the reference's parameters converted, 5 requests through
+2 slots (slot reuse), host prefill and chunked prefill — the generated
+tokens must be identical, request by request."""
 import jax
 import numpy as np
 import pytest
@@ -17,12 +17,12 @@ from repro_torch.serving import ServingEngine
 MAX_SEQ = 48
 
 
-@pytest.fixture(scope="module")
-def models():
-    j_cfg = j_get_config("llama3-8b").reduced()
+@pytest.fixture(scope="module", params=["llama3-8b", "mamba2-780m"])
+def models(request):
+    j_cfg = j_get_config(request.param).reduced()
     j_model = j_build(j_cfg, JShardCtx.single(kind="decode"))
     j_params = j_model.init(jax.random.key(1))
-    cfg = get_config("llama3-8b").reduced()
+    cfg = get_config(request.param).reduced()
     model = build(cfg, device="cpu")
     params = params_from_jax(jax.tree.map(np.asarray, j_params), cfg, "cpu")
     rng = np.random.default_rng(7)
@@ -52,8 +52,10 @@ def test_generate_matches_reference(models, chunked):
 
 
 @pytest.mark.parametrize("extra", [[], ["--chunked-prefill", "--policy",
-                                        "server"]],
-                         ids=["host_prefill", "chunked_server"])
+                                        "server"],
+                                   ["--arch", "mamba2-780m"]],
+                         ids=["host_prefill", "chunked_server",
+                              "mamba2_host_prefill"])
 def test_serve_cli_on_cpu(tmp_path, extra):
     """The port's serve entry point, asked for the CPU, serves every
     request, meets every deadline and exports its trace."""
