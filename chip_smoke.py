@@ -31,13 +31,16 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
 5. tile kernels: the drain megakernel (K1), its flight-recorder variant
    (K2) and the legacy executor (K3) against their plain versions at
    C = 132 clusters (one worker per SM), Q = 64 rows, nbuf = 8 tiles, on a
-   matmul-only queue and a mixed queue (every opcode, a 3-chunk REDUCE, a
-   [head, tail) window, a stopped cluster, out-of-range tile indices); and
-   K1/K2 at C = 1, the shape of every ``MegaRuntime`` launch (a full
-   matmul queue, a mixed queue with a window, a one-row launch): acks,
-   control words, profile rows and ticks exact, workspaces, results and
-   carries within 1e-4; kernel time (CUDA-graph replay), plain time,
-   ``torch.bmm`` over the same products, and the bound;
+   matmul-only queue, a mixed queue (every opcode, a 3-chunk REDUCE, a
+   [head, tail) window, a stopped cluster, out-of-range tile indices) and
+   a chain of products (each row's dst the next row's operand, some rows
+   D += A @ D); and K1/K2 at C = 1, the shape of every ``MegaRuntime``
+   launch (a full matmul queue, the chain, a mixed queue with a window, a
+   one-row launch): acks, control words, profile rows and ticks exact,
+   workspaces, results and carries within 1e-4 (K1/K2 compute in 3xTF32);
+   kernel time (CUDA-graph replay), plain time, ``torch.bmm`` over the
+   same products, and the bounds: K1/K2's at the TF32 rate, K3's and the
+   f32 FFMA bound at the f32 rate, each also for one SM a cluster;
 6. K3's own path: the tile-MLP demo program on 132 clusters, one launch,
    then K3 against its plain version at that shape;
 7. mega vs scan: 512 tile ops with chunked reduces through
@@ -102,9 +105,11 @@ from repro_torch.models import build  # noqa: E402
 from repro_torch.system import LkSystem  # noqa: E402
 
 # NVIDIA H100 SXM data sheet (dense): HBM rate and peak operation rates by
-# input type; the FFMA kernels' f32 inputs are held to the non-tensor rate
+# input type; the FFMA kernels' f32 inputs are held to the non-tensor rate,
+# K1/K2's 3xTF32 products (three TF32 products each) to the TF32 rate
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+N_SMS = 132
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
 ATOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}   # summation order
 LOGITS_ATOL = 0.25    # kernel vs plain attention through 32 bf16 layers
 SSD_TOL = 1e-4        # K6 vs plain, rtol and atol: f32 sums in another order
@@ -211,11 +216,14 @@ def host_ms(fn, iters: int = 20) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def bound(nbytes: float, ops: float, dtype) -> dict:
+def bound(nbytes: float, ops, dtype=None) -> dict:
     """The least time for the work: the larger of its bytes over the HBM
-    rate and its operations over the peak rate for its input type."""
+    rate and its operations over the peak rate for its input type. ``ops``
+    may be a {type: operations} dict for work on two units that run side
+    by side (tensor cores and FMA pipes): the slower of the two counts."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    ops = ops if isinstance(ops, dict) else {dtype: ops}
+    t_ops = max(n / PEAK_OPS[t] * 1e3 for t, n in ops.items())
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes_ms=t_bytes, ops_ms=t_ops)
@@ -572,28 +580,32 @@ def ssm_long_prompt_check() -> dict:
 # phase 5: tile kernels vs plain at 132 clusters
 # ---------------------------------------------------------------------------
 
-def _ring(programs, windows):
-    """(ctrl, queue) int32 tensors on the card from per-cluster descriptor
-    lists and (head, tail, stop) windows."""
+CHAIN_SCALE = 0.25    # the chained queue's workspace: the smoke's times this
+
+
+def _ring(programs, windows, device=DEVICE):
+    """(ctrl, queue) int32 tensors from per-cluster descriptor lists and
+    (head, tail, stop) windows."""
     ring = np.stack([mb.descriptor_ring(p, TILE_Q) for p in programs])
     ctrl = np.stack([mb.queue_control(tail=t, head=h, stop=s)
                      for h, t, s in windows])
-    return (torch.from_numpy(ctrl).to(DEVICE),
-            torch.from_numpy(ring).to(DEVICE))
+    return (torch.from_numpy(ctrl).to(device),
+            torch.from_numpy(ring).to(device))
 
 
-def matmul_queue():
+def matmul_queue(C=TILE_C, device=DEVICE):
     """Every row a matmul of tiles 0 and 1 (never written) into tiles
-    2..7: 8448 tile products, all active."""
+    2..7: 8448 tile products at C = 132, all active. No row reads another
+    row's dst, so K1/K2 prefetch every next row."""
     WD = mb.WorkDescriptor
     progs = [[WD(opcode=PK.OP_MATMUL, request_id=c * TILE_Q + i,
                  arg0=PK.pack_args(2 + (i + c) % 6, (i + c) % 2)[0],
                  arg1=(i + c + 1) % 2) for i in range(TILE_Q)]
-             for c in range(TILE_C)]
-    return _ring(progs, [(0, TILE_Q, 0)] * TILE_C)
+             for c in range(C)]
+    return _ring(progs, [(0, TILE_Q, 0)] * C, device)
 
 
-def mixed_queue(rng):
+def mixed_queue(rng, C=TILE_C, device=DEVICE):
     """Every opcode (and -1 / 9, which clip), random tiles with aliasing
     and out-of-range indices (-1, 9, 300: tile 7), a 3-chunk REDUCE at rows
     30-32, per-cluster [head, tail) windows and one stopped cluster. Tiles
@@ -602,7 +614,7 @@ def mixed_queue(rng):
     is their first operand."""
     WD = mb.WorkDescriptor
     progs = []
-    for c in range(TILE_C):
+    for c in range(C):
         prog = []
         for i in range(TILE_Q):
             rid = c * TILE_Q + i
@@ -626,9 +638,44 @@ def mixed_queue(rng):
                       if op == PK.OP_SCALE else PK.pack_args(dst, a, b))
             prog.append(WD(opcode=op, arg0=a0, arg1=a1, request_id=rid))
         progs.append(prog)
-    windows = [(c % 4, TILE_Q - c % 7, int(c == TILE_C - 1))
-               for c in range(TILE_C)]
-    return _ring(progs, windows)
+    windows = [(c % 4, TILE_Q - c % 7, int(c == C - 1)) for c in range(C)]
+    return _ring(progs, windows, device)
+
+
+def chained_queue(C=TILE_C, device=DEVICE):
+    """A chain of products: row i writes tile 2 + (i + c + 1) % 6 from tile
+    2 + (i + c) % 6, so each row's dst is the next row's first operand and
+    K1/K2 may prefetch no row; every 8th row's second operand is its own
+    dst (D += A @ D), the others take tile 0 or 1. Run on the smoke's
+    workspace times CHAIN_SCALE, which keeps every workspace value below
+    ~5 over 64 rows; at the smoke's own scale the chain grows without
+    bound, and a much larger chain makes a row's tile sum differ between
+    two f32 summation orders by more than the 1e-4 tolerance."""
+    WD = mb.WorkDescriptor
+    progs = []
+    for c in range(C):
+        prog = []
+        for i in range(TILE_Q):
+            a, dst = 2 + (i + c) % 6, 2 + (i + c + 1) % 6
+            b = dst if i % 8 == 7 else (i + c) % 2
+            prog.append(WD(opcode=PK.OP_MATMUL, request_id=c * TILE_Q + i,
+                           arg0=PK.pack_args(dst, a)[0], arg1=b))
+        progs.append(prog)
+    return _ring(progs, [(0, TILE_Q, 0)] * C, device)
+
+
+def tile_inputs(C=TILE_C, device=DEVICE) -> dict:
+    """The tile checks' state (ws, carry, tick) and their matmul, mixed
+    and chained queues, all from seed 0."""
+    rng = np.random.default_rng(0)
+    ws = torch.from_numpy((rng.standard_normal(
+        (C, TILE_NBUF, PK.TILE, PK.TILE)) * 0.1).astype(np.float32))
+    carry = torch.from_numpy(rng.uniform(-1, 1, (C, 1)).astype(np.float32))
+    tick = torch.from_numpy(rng.integers(0, 100, (C, 1)).astype(np.int32))
+    return dict(ws=ws.to(device), carry=carry.to(device),
+                tick=tick.to(device), matmul=matmul_queue(C, device),
+                mixed=mixed_queue(rng, C, device),
+                chained=chained_queue(C, device))
 
 
 def _tile_args(name, ctrl, ring, ws, carry, tick):
@@ -640,10 +687,11 @@ def _tile_args(name, ctrl, ring, ws, carry, tick):
     return ctrl, ring, ws.clone(), carry.clone(), tick.clone()
 
 
-def _tile_work(name, ctrl, ring, nbuf) -> tuple[float, float]:
-    """(bytes, operations) the launch needs on this data: each input read
-    and each output written once; 2*T^3 + 2*T^2 per active matmul row,
-    2*T^2 per active elementwise or reduce row (the op and the row's sum),
+def _tile_work(name, ctrl, ring, nbuf) -> tuple[float, float, float]:
+    """(bytes, tile products, other f32 operations) the launch needs on
+    this data: each input read and each output written once; a 128^3
+    product per active matmul row, plus 2*T^2 f32 operations (the add to D
+    and the row's sum) per active matmul, elementwise or reduce row;
     nothing for NOP rows."""
     q = ring.cpu().numpy()
     C, Q, _ = q.shape
@@ -658,8 +706,8 @@ def _tile_work(name, ctrl, ring, nbuf) -> tuple[float, float]:
             (c[:, mb.QC_STOP:mb.QC_STOP + 1] == 0)
         n_ops = PK.NUM_DRAIN_OPS
     op = np.clip(q[:, :, mb.W_OPCODE], 0, n_ops - 1)
-    ops = float(((op == PK.OP_MATMUL) & work).sum()) * (2 * T**3 + 2 * T**2)
-    ops += float(((op > PK.OP_MATMUL) & work).sum()) * 2 * T**2
+    products = float(((op == PK.OP_MATMUL) & work).sum())
+    f32_ops = float(((op >= PK.OP_MATMUL) & work).sum()) * 2 * T**2
     ws_bytes = C * nbuf * T * T * 4
     nbytes = 2 * ws_bytes + q.nbytes
     if name == "persistent_execute":
@@ -669,7 +717,25 @@ def _tile_work(name, ctrl, ring, nbuf) -> tuple[float, float]:
         nbytes += C * Q * (mb.DESC_WIDTH + 1) * 4                 # acks, res
         if name == "persistent_drain_prof":
             nbytes += C * Q * mb.PROF_WIDTH * 4 + 2 * C * 4       # prof, tick
-    return nbytes, ops
+    return nbytes, products, f32_ops
+
+
+def tile_bound(name, ctrl, ring, nbuf) -> dict:
+    """The launch's bound on the route its kernel takes — K1/K2: three
+    TF32 products a tile product (3xTF32) on the tensor cores, K3: one
+    product in f32 FFMA — with the f32 FFMA bound beside it, and each as
+    one SM a cluster allows: a launch of C < 132 clusters runs on C SMs."""
+    nbytes, products, f32_ops = _tile_work(name, ctrl, ring, nbuf)
+    flop = 2 * PK.TILE**3 * products
+    ffma = bound(nbytes, flop + f32_ops, torch.float32)
+    route = ffma if name == "persistent_execute" else bound(
+        nbytes, {"tf32": 3 * flop, torch.float32: f32_ops})
+    share = N_SMS / min(ring.shape[0], N_SMS)
+    return dict(route, ffma_bound_ms=ffma["bound_ms"],
+                sm_bound_ms=max(route["bytes_ms"], route["ops_ms"] * share),
+                sm_ffma_bound_ms=max(ffma["bytes_ms"],
+                                     ffma["ops_ms"] * share),
+                products=products)
 
 
 def tile_case(name, label, ctrl, ring, ws, carry, tick, time_it,
@@ -689,8 +755,7 @@ def tile_case(name, label, ctrl, ring, ws, carry, tick, time_it,
                 if t.dtype == torch.float32)
     row = dict(kernel=name, case=label, max_abs_err=err, ok=exact,
                scale=scale, library_ms=library_ms)
-    nbytes, ops = _tile_work(name, ctrl, ring, ws.shape[1])
-    row.update(bound(nbytes, ops, torch.float32))
+    row.update(tile_bound(name, ctrl, ring, ws.shape[1]))
     if time_it:
         args = _tile_args(name, ctrl, ring, ws, carry, tick)
         row["ms"] = time_ms(lambda: spec["wrapper"](*args))
@@ -704,10 +769,14 @@ def log_tile_row(r) -> None:
         f"kernel_ms={r['ms']:.4f} plain_eager_ms={r['plain_ms']:.3f} ")
     if r["library_ms"] is not None:
         t += f"bmm_same_products_no_queue_order_ms={r['library_ms']:.4f} "
+    route = "f32 FFMA" if r["kernel"] == "persistent_execute" else "3xTF32"
     log(f"check {r['kernel']:22s} {r['case']:28s} "
         f"max_abs_err={r['max_abs_err']:.3e} exact_ints_and_tol={r['ok']} "
-        f"max|value|={r['scale']:.3g} {t}bound_ms={r['bound_ms']:.4f} "
-        f"({r['bound_by']}; bytes {r['bytes_ms']:.4f}, ops {r['ops_ms']:.4f})")
+        f"max|value|={r['scale']:.3g} {t}bound_ms={r['bound_ms']:.5f} "
+        f"({route}, {r['bound_by']}; bytes {r['bytes_ms']:.5f}, ops "
+        f"{r['ops_ms']:.5f}) one_sm_a_cluster_bound_ms="
+        f"{r['sm_bound_ms']:.5f} ffma_bound_ms={r['ffma_bound_ms']:.5f} "
+        f"(one SM a cluster {r['sm_ffma_bound_ms']:.5f})")
 
 
 def bmm_ms(ring, ws) -> float:
@@ -736,18 +805,14 @@ def one_cluster(ctrl, ring, c, window=None):
 def tile_kernel_checks() -> dict:
     """K1-K3 against their plain versions at C = 132 (one worker per SM),
     and K1/K2 at C = 1: each ``MegaRuntime`` is one cluster, so every
-    launch of the mega paths has that shape (a full matmul queue, a mixed
-    queue with a window, a one-row launch as the reduce remainders are)."""
+    launch of the mega paths has that shape (a full matmul queue, a chain
+    of products, a mixed queue with a window, a one-row launch as the
+    reduce remainders are)."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    rng = np.random.default_rng(0)
-    ws = torch.from_numpy((rng.standard_normal(
-        (TILE_C, TILE_NBUF, PK.TILE, PK.TILE)) * 0.1).astype(
-            np.float32)).to(DEVICE)
-    carry = torch.from_numpy(rng.uniform(-1, 1, (TILE_C, 1)).astype(
-        np.float32)).to(DEVICE)
-    tick = torch.from_numpy(rng.integers(0, 100, (TILE_C, 1)).astype(
-        np.int32)).to(DEVICE)
-    mm, mixed = matmul_queue(), mixed_queue(rng)
+    inp = tile_inputs()
+    ws, carry, tick = inp["ws"], inp["carry"], inp["tick"]
+    mm, mixed, chain = inp["matmul"], inp["mixed"], inp["chained"]
+    ws_chain = ws * CHAIN_SCALE
     mm1 = one_cluster(*mm, 0)
     st1 = (ws[:1], carry[:1], tick[:1])
     lib, lib1 = bmm_ms(mm[1], ws), bmm_ms(mm1[1], ws[:1])
@@ -758,11 +823,15 @@ def tile_kernel_checks() -> dict:
         rows = [tile_case(name, f"matmul_{big}", *mm, ws, carry, tick,
                           time_it=True, library_ms=lib),
                 tile_case(name, f"mixed_{big}", *mixed, ws, carry, tick,
-                          time_it=False)]
+                          time_it=False),
+                tile_case(name, f"chained_{big}", *chain, ws_chain, carry,
+                          tick, time_it=False)]
         if name != "persistent_execute":      # K3's path: phase 6
             rows += [
                 tile_case(name, f"matmul_{one}", *mm1, *st1, time_it=True,
                           library_ms=lib1),
+                tile_case(name, f"chained_{one}", *one_cluster(*chain, 0),
+                          ws_chain[:1], carry[:1], tick[:1], time_it=True),
                 tile_case(name, f"mixed_{one}_window", *one_cluster(
                     *mixed, min(5, TILE_C - 1)), *st1, time_it=False),
                 tile_case(name, f"mixed_{one}_one_row", *one_cluster(
@@ -773,15 +842,22 @@ def tile_kernel_checks() -> dict:
         if bad:
             raise SystemExit(
                 f"tile kernel disagrees with its plain version: {bad}")
-        out[name] = dict(c132=rows[0], path=rows[2] if len(rows) > 2
+        out[name] = dict(c132=rows[0], path=rows[3] if len(rows) > 3
+                         else None, chained_c1=rows[4] if len(rows) > 4
                          else None,
                          max_abs_err=max(r["max_abs_err"] for r in rows))
-    k1 = out["persistent_drain"]["path"]["ms"]
-    log(f"one cluster (C=1): 64 tile products in {k1:.4f} ms = "
-        f"{k1 * 1e3 / TILE_Q:.2f} us each; one CTA per cluster caps a C=1 "
-        f"launch at one SM's share of the f32 rate, "
-        f"{2 * PK.TILE**3 / (PEAK_OPS[torch.float32] / 132) * 1e6:.2f} us "
-        f"per product")
+    for name in TILE_KERNELS[:2]:
+        k, ch = out[name]["path"], out[name]["chained_c1"]
+        T = PK.TILE
+        floor_ffma = 2 * T**3 / (PEAK_OPS[torch.float32] / N_SMS) * 1e6
+        floor_tf32 = 3 * 2 * T**3 / (PEAK_OPS["tf32"] / N_SMS) * 1e6
+        log(f"one cluster (C=1), {name}: {TILE_Q} tile products in "
+            f"{k['ms']:.4f} ms = {k['ms'] * 1e3 / TILE_Q:.2f} us each "
+            f"(every next row prefetched), chained {ch['ms']:.4f} ms = "
+            f"{ch['ms'] * 1e3 / TILE_Q:.2f} us each (no row prefetched); "
+            f"one CTA per cluster caps a C=1 launch at one SM's share: "
+            f"{floor_tf32:.2f} us a product at the TF32 rate (3xTF32), "
+            f"{floor_ffma:.2f} us at the f32 rate (FFMA)")
     return out
 
 
@@ -1128,9 +1204,15 @@ def main(argv=None) -> int:
             row, launches = tiles[name]["path"], paths[name][name]
             big = tiles[name]["c132"]
             extra["shape"] = row["case"]
-            extra["at_" + big["case"]] = {
-                k: big[k] for k in ("ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms")}
+            extra["one_sm_a_cluster_bound_ms"] = row["sm_bound_ms"]
+            extra["ffma_bound_ms"] = row["ffma_bound_ms"]
+            keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "ffma_bound_ms")
+            extra["at_" + big["case"]] = {k: big[k] for k in keys}
+            chained = tiles[name].get("chained_c1")
+            if chained is not None:
+                extra["at_" + chained["case"]] = {k: chained[k]
+                                                  for k in keys}
             row = dict(row, max_abs_err=max(row["max_abs_err"],
                                             tiles[name]["max_abs_err"]))
         if name == "persistent_drain":

@@ -29,20 +29,53 @@
 // out-of-range index (the oracle raises instead). Workspace, carry and tick
 // are updated in place, as the reference aliases them in -> out.
 //
-// What bounds it on the H100: for matmul rows, operations. A 128^3 tile
-// product is 4.2 MFLOP of f32 work kept exact (FFMA, never TF32: results are
-// held to 1e-4 against f32 math), so the card's floor is the f32 rate
-// (67 TFLOP/s over 132 SMs). The rows of one cluster are sequential by
-// definition (row i + 1 reads row i's writes), so one CTA per cluster caps
-// a C = 1 launch at one SM's share, ~8.3 us per tile product; C = 132
-// clusters fill the card. The workspace (512 KiB per cluster at nbuf = 8)
-// exceeds shared memory, so it stays in global memory (L2 holds most of
-// it) and each product stages 32-wide k-blocks of its operands in shared
-// memory; each thread keeps an 8x8 block of the product in registers until
-// both operands are fully read, so dst may alias a or b. Elementwise rows
-// are safe in place: a thread reads element e of its inputs before it
-// writes element e of dst. __syncthreads() ends every row, so row i + 1
-// sees row i's global writes.
+// What bounds it on the H100. K1/K2: for matmul rows, operations. A 128^3
+// tile product is 4.2 MFLOP that must stay exact to 1e-4 against f32 math,
+// which plain TF32 (10-bit mantissa) misses; 3xTF32 does not: each f32
+// operand x is split into big = tf32(x) and small = tf32(x - big), and
+// a_small*b_big + a_big*b_small + a_big*b_big is accumulated in f32 on the
+// tensor cores (mma.sync m16n8k8 tf32), dropping small*small (~2^-22
+// relative). That is 3 x 4.2 MFLOP a product at the TF32 rate (495 TFLOP/s
+// over 132 SMs): a floor of 3.35 us a product on one SM, against 8.26 us
+// for FFMA at the f32 rate; mma.sync reaches about two thirds of that rate
+// (scripts/drain_variants.py). The rows of one cluster are sequential by
+// definition (row i + 1 reads row i's writes) and a cluster is one worker
+// on one SM, so a C = 1 launch can use one SM's share of the card at best;
+// C = 132 clusters fill it. In practice the kernel is held by shared
+// memory: the ring's fills, the splits and every warp's fragment reads
+// pass through it, at ~17 us a product (PERF.md).
+//
+// What the design does about it. The workspace (512 KiB a cluster at
+// nbuf = 8) exceeds shared memory, so it stays in global memory (L2 holds
+// most of it). A product streams its operands through a ring of
+// RING_STAGES 32-deep k-blocks in dynamic shared memory, filled with
+// 16-byte cp.async copies: A stored [m][k] (row stride 36 floats), B
+// [k][n] (stride 136), so every fragment read is free of bank conflicts
+// and no element is transposed on the way in. The ring holds one whole
+// product. Once a stage lands, all threads split it in place (each value
+// once, where every warp that reads it would split it again): the stage
+// keeps the big halves, one of two small-half buffers the small ones; a
+// phase splits k-block kb + 1 in parts between the 8-deep steps of kb's
+// math, with one barrier a phase. When the next active row is a MATMUL
+// that reads neither operand from this row's dst, its k-blocks are issued
+// into the stages this row frees and its first is split in this row's
+// last phase; otherwise the next row starts its own fills (it never
+// prefetches across a write it could see). 16 warps in a 4 x 4 grid each own
+// a 32 x 32 block of the product, 8 m16n8 tiles, 32 f32 accumulators a
+// thread (a 2 x 4 grid of 8 warps with 64 needs 255 registers, spills and
+// runs slower), held in registers until every read of A and B from global
+// memory has ended (the last stage's split); only then is D + acc written,
+// so dst may alias a or b. A row's descriptor words are read a row ahead.
+// Elementwise rows are safe in place: a thread reads element e of its inputs
+// before it writes element e of dst. __syncthreads() ends every row, so row
+// i + 1 sees row i's global writes. ptxas (sm_90a, CUDA 12.9; the build's
+// build/kernels/persistent-*.so.log): drain_kernel<false> and <true> 128
+// registers, 72 and 80 bytes of spill stores, 64 bytes of static shared
+// memory plus DRAIN_SMEM_BYTES = 215040 dynamic.
+//
+// K3 keeps the FFMA tile product of the first port (8 x 8 outputs a
+// thread, k-blocks staged synchronously in static shared memory), bound by
+// the f32 rate.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (see repro_torch/kernels/_build.py).
@@ -92,16 +125,45 @@ static_assert(OP_COPY == OP_RELU + 1 && OP_REDUCE == OP_COPY + 1,
               "tile_op writes every opcode from MATMUL to COPY");
 
 constexpr int TT = TILE * TILE;
-constexpr int NT = 256;             // threads per CTA: 16 x 16, 8x8 outputs each
+
+// K3: 256 threads, 16 x 16, 8x8 outputs each, FFMA
+constexpr int NT = 256;
 constexpr int KB = 32;              // k-block of a tile product
 constexpr int LDA = TILE + 1;       // padded row of the transposed A block
-constexpr int NWARP = NT / 32;
 
 struct Smem {
   float a[KB * LDA];                // A[:, k0:k0+KB] transposed: a[k][m]
   alignas(16) float b[KB * TILE];   // B[k0:k0+KB, :]
-  float red[NWARP];
+  float red[NT / 32];
 };
+
+// K1/K2: a warp grid over the 128 x 128 product; warp (wm, wn) owns rows
+// 16 WARP_MT wm + [0, 16 WARP_MT) and columns 8 WARP_NT wn + [0, 8 WARP_NT)
+constexpr int DRAIN_WARPS_M = 4;
+constexpr int DRAIN_WARPS_N = 4;
+constexpr int DRAIN_NT = 32 * DRAIN_WARPS_M * DRAIN_WARPS_N;
+constexpr int WARP_MT = TILE / 16 / DRAIN_WARPS_M;   // m16 tiles a warp
+constexpr int WARP_NT = TILE / 8 / DRAIN_WARPS_N;    // n8 tiles a warp
+
+// K1/K2's operand ring: one stage per 32-deep k-block of a product, so the
+// ring holds a whole product. A k-block of A is stored [m][k] with rows of
+// RING_A_LD floats, one of B [k][n] with rows of RING_B_LD: 16-byte aligned
+// rows for cp.async, and strides of 4 and 8 banks mod 32, so the lanes of
+// a fragment read (row g = lane / 4, column t = lane % 4 of A; row t,
+// column g of B) hit 32 distinct banks.
+constexpr int RING_STAGES = 4;
+constexpr int RING_KB = 32;
+constexpr int RING_A_LD = 36;
+constexpr int RING_B_LD = 136;
+constexpr int KBLOCK_FLOATS = TILE * RING_KB;   // a k-block of A (or B)
+constexpr int STAGE_FLOATS = TILE * RING_A_LD + RING_KB * RING_B_LD;
+// A stage is split in place once it lands: its floats become their tf32
+// big halves and the small halves go to one of two buffers of the stage's
+// layout, so one k-block is split while the one before is multiplied.
+constexpr int SMALL_BUFFERS = 2;
+constexpr int DRAIN_SMEM_BYTES =
+    (RING_STAGES + SMALL_BUFFERS) * STAGE_FLOATS * 4;
+static_assert(RING_STAGES * RING_KB == TILE, "the ring holds one product");
 
 // The reference's ref[...] with a dynamic index: negative indices count
 // from the end, then the index is clamped into range.
@@ -115,8 +177,9 @@ __device__ __forceinline__ int wrap_add(int x, int y) {
   return static_cast<int>(static_cast<unsigned>(x) + static_cast<unsigned>(y));
 }
 
-// Sum of v over the CTA; the total is valid on thread 0 only. Callers end
-// the row with __syncthreads() before the next call reuses red.
+// Sum of v over a CTA of WARPS warps; the total is valid on thread 0 only.
+// Callers end the row with __syncthreads() before the next call reuses red.
+template <int WARPS>
 __device__ float block_sum(float v, float* red) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -125,7 +188,7 @@ __device__ float block_sum(float v, float* red) {
   __syncthreads();
   float s = 0.f;
   if (warp == 0) {
-    s = lane < NWARP ? red[lane] : 0.f;
+    s = lane < WARPS ? red[lane] : 0.f;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
   }
@@ -172,7 +235,36 @@ __device__ void tile_product(const float* A, const float* B,
   }
 }
 
-// Run one tile op (op already clipped, indices already in range) on one
+// This thread's part of an elementwise row (ADD, SCALE, RELU, COPY) or of
+// REDUCE's sum(ws[a]) on a CTA of THREADS threads: the sum of the elements
+// it wrote (read, for REDUCE).
+template <int THREADS>
+__device__ float elementwise_part(int op, float* ws, int dst, int a, int arg1,
+                                  int nbuf) {
+  const float4* A4 = reinterpret_cast<const float4*>(ws + (size_t)a * TT);
+  const float4* B4 = reinterpret_cast<const float4*>(
+      ws + (size_t)tile_index(arg1, nbuf) * TT);
+  float4* D4 = reinterpret_cast<float4*>(ws + (size_t)dst * TT);
+  const float scale = __int2float_rn(arg1) * (1.0f / (1 << SCALE_SHIFT));
+  float part = 0.f;
+  for (int f = threadIdx.x; f < TT / 4; f += THREADS) {
+    float4 x = A4[f];
+    if (op == OP_ADD) {
+      const float4 y = B4[f];
+      x.x += y.x; x.y += y.y; x.z += y.z; x.w += y.w;
+    } else if (op == OP_SCALE) {
+      x.x *= scale; x.y *= scale; x.z *= scale; x.w *= scale;
+    } else if (op == OP_RELU) {            // NaN passes, as jnp.maximum
+      x.x = x.x < 0.f ? 0.f : x.x; x.y = x.y < 0.f ? 0.f : x.y;
+      x.z = x.z < 0.f ? 0.f : x.z; x.w = x.w < 0.f ? 0.f : x.w;
+    }
+    if (op != OP_REDUCE) D4[f] = x;        // COPY writes x unchanged
+    part += (x.x + x.y) + (x.z + x.w);
+  }
+  return part;
+}
+
+// K3's tile op (op already clipped, indices already in range) on one
 // cluster's workspace. Returns the sum of the tile written — or, for
 // REDUCE, sum(ws[a]) — valid on thread 0 only. Every thread calls it with
 // the same arguments (the row's branch is uniform over the CTA).
@@ -195,54 +287,346 @@ __device__ float tile_op(int op, float* ws, int dst, int a, int arg1,
         part += v;
       }
   } else {
-    const float4* A4 = reinterpret_cast<const float4*>(ws + (size_t)a * TT);
-    const float4* B4 = reinterpret_cast<const float4*>(
-        ws + (size_t)tile_index(arg1, nbuf) * TT);
-    float4* D4 = reinterpret_cast<float4*>(ws + (size_t)dst * TT);
-    const float scale = __int2float_rn(arg1) * (1.0f / (1 << SCALE_SHIFT));
-    for (int f = threadIdx.x; f < TT / 4; f += NT) {
-      float4 x = A4[f];
-      if (op == OP_ADD) {
-        const float4 y = B4[f];
-        x.x += y.x; x.y += y.y; x.z += y.z; x.w += y.w;
-      } else if (op == OP_SCALE) {
-        x.x *= scale; x.y *= scale; x.z *= scale; x.w *= scale;
-      } else if (op == OP_RELU) {            // NaN passes, as jnp.maximum
-        x.x = x.x < 0.f ? 0.f : x.x; x.y = x.y < 0.f ? 0.f : x.y;
-        x.z = x.z < 0.f ? 0.f : x.z; x.w = x.w < 0.f ? 0.f : x.w;
+    part = elementwise_part<NT>(op, ws, dst, a, arg1, nbuf);
+  }
+  return block_sum<NT / 32>(part, sm.red);
+}
+
+// ---- K1/K2's tile product: 3xTF32 mma.sync fed by the cp.async ring ----
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's newest commit groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Issue this thread's copies of k-block kb of A and B into stage kb (the
+// caller commits them as one group).
+__device__ __forceinline__ void fill_stage(float* ring, const float* A,
+                                           const float* B, int kb) {
+  float* sa = ring + kb * STAGE_FLOATS;
+  float* sb = sa + TILE * RING_A_LD;
+  const int k0 = kb * RING_KB;
+#pragma unroll
+  for (int r = 0; r < KBLOCK_FLOATS / 4 / DRAIN_NT; ++r) {
+    const int f = threadIdx.x + DRAIN_NT * r;    // 16-byte chunk
+    const int m = f / (RING_KB / 4), kq = (f % (RING_KB / 4)) * 4;
+    cp_async16(sa + m * RING_A_LD + kq, A + m * TILE + k0 + kq);
+    const int kk = f / (TILE / 4), nq = (f % (TILE / 4)) * 4;
+    cp_async16(sb + kk * RING_B_LD + nq, B + (k0 + kk) * TILE + nq);
+  }
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r & 0xffffe000u;             // tf32 in f32's layout, low bits clear
+}
+
+__device__ __forceinline__ bool finite_bits(uint32_t x) {
+  return (x & 0x7f800000u) != 0x7f800000u;
+}
+
+// x = big + small in tf32, both rounded to nearest (ties away from zero).
+// Where big is not finite (x is inf or NaN, or rounds to inf), small is 0,
+// since x - big would be NaN. Returns whether big is finite.
+__device__ __forceinline__ bool split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  const bool finite = finite_bits(big);
+  small = finite ? tf32_rna(x - __uint_as_float(big)) : 0u;
+  return finite;
+}
+
+// A thread's share of splitting a ring stage: SPLIT_PARTS float4s, spread
+// evenly over the 8-deep steps of the math, so the split of the next
+// k-block can run between the tensor-core instructions of this one.
+constexpr int SPLIT_PARTS = 2 * KBLOCK_FLOATS / 4 / DRAIN_NT;
+constexpr int STEP_PARTS = SPLIT_PARTS / (RING_KB / 8);
+static_assert(STEP_PARTS * (RING_KB / 8) == SPLIT_PARTS,
+              "the split parts spread evenly over the math steps");
+
+// Split part r of ring stage `stage` (a k-block of A and B) in place into
+// its big halves, the small halves into `small`; returns whether this
+// thread met a big that is not finite. Each value is split once, where
+// every warp that multiplies it would split it again.
+__device__ __forceinline__ bool split_part(float* stage, float* small,
+                                           int r) {
+  const int f = threadIdx.x + DRAIN_NT * r;      // float4 of the stage
+  const int off = f < KBLOCK_FLOATS / 4
+      ? (f / (RING_KB / 4)) * RING_A_LD + (f % (RING_KB / 4)) * 4
+      : TILE * RING_A_LD +
+            ((f - KBLOCK_FLOATS / 4) / (TILE / 4)) * RING_B_LD +
+            ((f - KBLOCK_FLOATS / 4) % (TILE / 4)) * 4;
+  const float4 x = *reinterpret_cast<const float4*>(stage + off);
+  uint4 big, sml;
+  bool finite = split_tf32(x.x, big.x, sml.x);
+  finite &= split_tf32(x.y, big.y, sml.y);
+  finite &= split_tf32(x.z, big.z, sml.z);
+  finite &= split_tf32(x.w, big.w, sml.w);
+  *reinterpret_cast<uint4*>(stage + off) = big;
+  *reinterpret_cast<uint4*>(small + off) = sml;
+  return !finite;
+}
+
+// d = a * b + c (c = 0 when null): m16n8k8, tf32 in, f32 accumulate
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         const uint32_t* b, const float* c) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(c ? c[0] : 0.f), "f"(c ? c[1] : 0.f), "f"(c ? c[2] : 0.f),
+        "f"(c ? c[3] : 0.f));
+}
+
+__device__ __forceinline__ uint32_t finite_or_0(uint32_t x) {
+  return finite_bits(x) ? x : 0u;
+}
+
+// acc += this warp's block of A @ B over one split k-block (big halves in
+// `big`, small halves in `small`, both in the stage layout), in 3xTF32:
+// a_small b_big + a_big b_small + a_big b_big, small * small dropped. Each
+// 8-deep step forms its three products in a fresh accumulator p, small
+// terms first, and adds p to acc in f32 with rounding to nearest: the
+// tensor cores sum with truncation, and summing every step's terms into the
+// full-size acc truncates them at acc's magnitude (4x FFMA's error on the
+// smoke's tile sums, past 1e-4), where p is a fraction of acc and starts
+// from 0. MASK (the k-block holds a big that is not finite): the cross
+// terms take such a big as 0, since inf * small is NaN where small is 0
+// and the wrong infinity where small has the other sign; inf and NaN then
+// propagate through a_big b_big alone, as they do in FFMA (up to an f32
+// value that rounds up to tf32 inf, and a denormal that rounds to 0).
+// Fragment reads: lane (g, t) = (lane / 4, lane % 4) reads A rows g, g + 8
+// and columns t, t + 4 of an m16 tile, B rows t, t + 4 and column g of an
+// n8 tile.
+template <bool MASK>
+__device__ __forceinline__ bool mma_kblock(const float* big,
+                                           const float* small,
+                                           float (&acc)[WARP_MT][WARP_NT][4],
+                                           float* next, float* next_small) {
+  bool nonfinite = false;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int a0 = ((warp / DRAIN_WARPS_N) * 16 * WARP_MT + g) * RING_A_LD + t;
+  const int b0 = TILE * RING_A_LD + t * RING_B_LD +
+                 (warp % DRAIN_WARPS_N) * 8 * WARP_NT + g;
+#pragma unroll
+  for (int k8 = 0; k8 < RING_KB; k8 += 8) {
+#pragma unroll
+    for (int q = 0; q < STEP_PARTS; ++q)
+      if (next != nullptr)
+        nonfinite |= split_part(next, next_small, k8 / 8 * STEP_PARTS + q);
+    uint32_t bb[WARP_NT][2], bs[WARP_NT][2], bx[WARP_NT][2];
+#pragma unroll
+    for (int nt = 0; nt < WARP_NT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int o = b0 + (k8 + 4 * r) * RING_B_LD + 8 * nt;
+        bb[nt][r] = __float_as_uint(big[o]);
+        bs[nt][r] = __float_as_uint(small[o]);
+        bx[nt][r] = MASK ? finite_or_0(bb[nt][r]) : bb[nt][r];
       }
-      if (op != OP_REDUCE) D4[f] = x;        // COPY writes x unchanged
-      part += (x.x + x.y) + (x.z + x.w);
+#pragma unroll
+    for (int mt = 0; mt < WARP_MT; ++mt) {
+      uint32_t ab[4], as[4], ax[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {     // (g, t) (g+8, t) (g, t+4) (g+8, t+4)
+        const int o = a0 + (16 * mt + 8 * (r & 1)) * RING_A_LD + k8 +
+                      4 * (r >> 1);
+        ab[r] = __float_as_uint(big[o]);
+        as[r] = __float_as_uint(small[o]);
+        ax[r] = MASK ? finite_or_0(ab[r]) : ab[r];
+      }
+#pragma unroll
+      for (int nt = 0; nt < WARP_NT; ++nt) {
+        float p[4];
+        mma_tf32(p, as, bx[nt], nullptr);
+        mma_tf32(p, ax, bs[nt], p);
+        mma_tf32(p, ab, bb[nt], p);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[mt][nt][r] += p[r];
+      }
     }
   }
-  return block_sum(part, sm.red);
+  return nonfinite;
+}
+
+// One MATMUL row: D += A @ B, with D + (A @ B) formed as the reference
+// forms it. Every phase kb has one barrier; after it, k-block kb is split
+// (its non-finite flag is the barrier's OR) and every warp is done with
+// k-block kb - 1, whose stage is refilled; k-block kb + 1 is then split
+// while kb is multiplied. `ready`: the row before issued this row's
+// k-blocks 0-2 and split k-block 0 (its flag in `nonfinite`), and this row
+// issues its k-block 3 into the stage the row before's k-block 3 frees.
+// An/Bn, when not null, are the operands of the next active row, which
+// reads neither from D: its k-blocks 0-2 are issued here as stages free up
+// and its k-block 0 is split in the last phase. Each k-block is waited on
+// through the commit-group count: at most one group (real or empty) is
+// committed after it when it is split. Returns the sum of the tile written,
+// valid on thread 0.
+__device__ float matmul_row(const float* A, const float* B, float* D,
+                            bool ready, const float* An, const float* Bn,
+                            float* ring, float* small, float* red,
+                            bool& nonfinite) {
+  if (!ready) {
+#pragma unroll
+    for (int kb = 0; kb < RING_STAGES; ++kb) {
+      fill_stage(ring, A, B, kb);
+      cp_async_commit();
+    }
+    cp_async_wait<RING_STAGES - 1>();
+    __syncthreads();                  // k-block 0 landed
+    nonfinite = false;
+#pragma unroll
+    for (int r = 0; r < SPLIT_PARTS; ++r)
+      nonfinite |= split_part(ring, small, r);
+  }
+  float acc[WARP_MT][WARP_NT][4];
+#pragma unroll
+  for (int mt = 0; mt < WARP_MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < WARP_NT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.f;
+#pragma unroll 1
+  for (int kb = 0; kb < RING_STAGES; ++kb) {
+    cp_async_wait<1>();               // the k-block split in this phase
+    const bool mask = __syncthreads_or(nonfinite);
+    if (kb == 0) {
+      if (ready) fill_stage(ring, A, B, RING_STAGES - 1);
+    } else if (An != nullptr) {
+      fill_stage(ring, An, Bn, kb - 1);
+    }
+    cp_async_commit();
+    // the next k-block to split: this row's kb + 1, or the next row's 0
+    float *next = nullptr, *next_small = nullptr;
+    if (kb + 1 < RING_STAGES) {
+      next = ring + (kb + 1) * STAGE_FLOATS;
+      next_small = small + ((kb + 1) & 1) * STAGE_FLOATS;
+    } else if (An != nullptr) {
+      next = ring;
+      next_small = small;
+    }
+    const float* bg = ring + kb * STAGE_FLOATS;
+    const float* sm = small + (kb & 1) * STAGE_FLOATS;
+    nonfinite = mask ? mma_kblock<true>(bg, sm, acc, next, next_small)
+                     : mma_kblock<false>(bg, sm, acc, next, next_small);
+  }
+  // every read of A and B from global memory ended before its split
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = (warp / DRAIN_WARPS_N) * 16 * WARP_MT + (lane >> 2);
+  const int c0 = (warp % DRAIN_WARPS_N) * 8 * WARP_NT + 2 * (lane & 3);
+  float part = 0.f;
+#pragma unroll
+  for (int mt = 0; mt < WARP_MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < WARP_NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float2* p = reinterpret_cast<float2*>(
+            D + (r0 + 16 * mt + 8 * h) * TILE + c0 + 8 * nt);
+        float2 v = *p;
+        v.x = v.x + acc[mt][nt][2 * h];
+        v.y = v.y + acc[mt][nt][2 * h + 1];
+        *p = v;
+        part += v.x + v.y;
+      }
+  return block_sum<DRAIN_NT / 32>(part, red);
+}
+
+// The words of a queue row that decide what the drain does with it (a NOP
+// row past the end).
+struct RowWords {
+  int status, opcode, arg0, arg1;
+};
+
+__device__ __forceinline__ RowWords row_words(const int* qc, int i, int Q) {
+  if (i >= Q) return {THREAD_NOP, 0, 0, 0};
+  const int* d = qc + (size_t)i * DESC_WIDTH;
+  return {d[W_STATUS], d[W_OPCODE], d[W_ARG0], d[W_ARG1]};
+}
+
+// The first row at or after i with a work status below `end`, or Q.
+__device__ __forceinline__ int next_work(const int* qc, int i, int end,
+                                         int Q) {
+  while (i < end && qc[(size_t)i * DESC_WIDTH + W_STATUS] < THREAD_WORK) ++i;
+  return i < end ? i : Q;
 }
 
 template <bool PROFILE>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(DRAIN_NT, 1)
 drain_kernel(const int* ctrl, const int* queue, float* ws, float* carry,
              int* tick, int* acks, float* results, int* ctrl_out, int* prof,
              int Q, int nbuf) {
-  __shared__ Smem sm;
+  extern __shared__ __align__(16) float ring[];
+  __shared__ float red[DRAIN_NT / 32];
+  float* small = ring + RING_STAGES * STAGE_FLOATS;
   const int c = blockIdx.x;
   const int* cc = ctrl + c * QCTRL_WIDTH;
   const int head = cc[QC_HEAD], tail = cc[QC_TAIL], stop = cc[QC_STOP];
+  const int end = min(tail, Q);
+  const int* qc = queue + (size_t)c * Q * DESC_WIDTH;
   float* wsc = ws + (size_t)c * nbuf * TT;
   float carry_c = carry[c];           // threads other than 0 never use it
   int tick_c = PROFILE ? tick[c] : 0;
   int drained = 0;
+  bool ready = false;      // the row before issued this row's k-blocks
+  bool nonfinite = false;  // this thread's last split met a non-finite big
+  // rows i and i + 1 are read a row ahead, so a row's decisions (and the
+  // prefetch of the next) wait on no load
+  RowWords cur = row_words(qc, 0, Q), nxt = row_words(qc, 1, Q);
   for (int i = 0; i < Q; ++i) {
-    const int* d = queue + ((size_t)c * Q + i) * DESC_WIDTH;
-    const int status = d[W_STATUS], opcode = d[W_OPCODE], arg0 = d[W_ARG0];
+    const RowWords later = row_words(qc, i + 2, Q);
+    const int* d = qc + (size_t)i * DESC_WIDTH;
+    int reqid = 0, chunk = 0, n_chunks = 0;
+    if (threadIdx.x == 0) {
+      reqid = d[W_REQID];
+      chunk = d[W_CHUNK];
+      n_chunks = d[W_NCHUNKS];
+    }
     const bool active = i >= head && i < tail && stop == 0 &&
-                        status >= THREAD_WORK;
+                        cur.status >= THREAD_WORK;
     float res = 0.f;
     if (active) {
-      const int op = min(max(opcode, 0), NUM_DRAIN_OPS - 1);
-      if (op != 0) {
-        const float s = tile_op(op, wsc, tile_index(arg0 >> 8, nbuf),
-                                tile_index(arg0 & 255, nbuf), d[W_ARG1], nbuf,
-                                sm);
+      const int op = min(max(cur.opcode, 0), NUM_DRAIN_OPS - 1);
+      const int dst = tile_index(cur.arg0 >> 8, nbuf);
+      const int a = tile_index(cur.arg0 & 255, nbuf);
+      if (op == OP_MATMUL) {
+        const int b = tile_index(cur.arg1, nbuf);
+        // the next row the drain runs (i is active, so head <= i and
+        // stop == 0); prefetch it only if it is a product that does not
+        // read this row's dst
+        RowWords dn = nxt;
+        if (!(i + 1 < end && nxt.status >= THREAD_WORK))
+          dn = row_words(qc, next_work(qc, i + 2, end, Q), Q);
+        const float *An = nullptr, *Bn = nullptr;
+        const int an = tile_index(dn.arg0 & 255, nbuf);
+        const int bn = tile_index(dn.arg1, nbuf);
+        if (dn.status >= THREAD_WORK &&
+            min(max(dn.opcode, 0), NUM_DRAIN_OPS - 1) == OP_MATMUL &&
+            an != dst && bn != dst) {
+          An = wsc + (size_t)an * TT;
+          Bn = wsc + (size_t)bn * TT;
+        }
+        res = matmul_row(wsc + (size_t)a * TT, wsc + (size_t)b * TT,
+                         wsc + (size_t)dst * TT, ready, An, Bn, ring, small,
+                         red, nonfinite);
+        ready = An != nullptr;
+      } else if (op != 0) {
+        const float s = block_sum<DRAIN_NT / 32>(
+            elementwise_part<DRAIN_NT>(op, wsc, dst, a, cur.arg1, nbuf), red);
         if (op == OP_REDUCE) {
           carry_c = carry_c + s;
           res = carry_c;
@@ -253,13 +637,12 @@ drain_kernel(const int* ctrl, const int* queue, float* ws, float* carry,
     }
     if (threadIdx.x == 0) {
       const size_t row = (size_t)c * Q + i;
-      const int chunk = d[W_CHUNK], n_chunks = d[W_NCHUNKS];
       const bool done = wrap_add(chunk, 1) >= max(n_chunks, 1);
       int* ack = acks + row * DESC_WIDTH;
       for (int w = 0; w < DESC_WIDTH; ++w) ack[w] = 0;
       ack[W_STATUS] = active ? (done ? THREAD_FINISHED : THREAD_PREEMPTED)
                              : THREAD_NOP;
-      ack[W_REQID] = d[W_REQID];
+      ack[W_REQID] = reqid;
       ack[W_CHUNK] = chunk;
       ack[W_NCHUNKS] = n_chunks;
       results[row] = res;
@@ -271,8 +654,8 @@ drain_kernel(const int* ctrl, const int* queue, float* ws, float* carry,
           p[P_TICK1] = wrap_add(tick_c, 1);
           p[P_ROW] = drained;
           p[P_QDEPTH] = wrap_add(tail, -i);
-          p[P_OPCODE] = opcode;
-          p[P_REQID] = d[W_REQID];
+          p[P_OPCODE] = cur.opcode;
+          p[P_REQID] = reqid;
           p[P_ACTIVE] = 1;
         }
       }
@@ -281,6 +664,8 @@ drain_kernel(const int* ctrl, const int* queue, float* ws, float* carry,
       ++drained;
       if (PROFILE) tick_c = wrap_add(tick_c, 1);
     }
+    cur = nxt;
+    nxt = later;
     __syncthreads();
   }
   if (threadIdx.x == 0) {
@@ -318,6 +703,28 @@ execute_kernel(const int* queue, float* ws, int* fromgpu, int Q, int nbuf) {
   }
 }
 
+// The dynamic shared memory a drain launch asks for: DRAIN_SMEM_BYTES, or
+// what persistent_drain_request_smem set (a fault-injection hook: a size
+// above the card's opt-in limit makes the attribute call fail, which the
+// launcher must report).
+int g_smem_request = 0;
+
+// Allow both drain instances `bytes` of dynamic shared memory. Set before
+// every launch, as the flash-attention launcher does, so it holds on
+// whichever device is current.
+int set_drain_smem(int bytes) {
+  auto bare = drain_kernel<false>;
+  auto profiled = drain_kernel<true>;
+  cudaError_t err = cudaFuncSetAttribute(
+      bare, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        profiled, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess)
+    cudaGetLastError();    // reported here; the next launch must not see it
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 // K1 (profile = 0) and K2 (profile = 1): one drain launch of C clusters.
@@ -325,13 +732,17 @@ execute_kernel(const int* queue, float* ws, int* fromgpu, int Q, int nbuf) {
 // (C, nbuf, 128, 128) f32, carry (C, 1) f32, tick (C, 1) i32 (K2 only; ws,
 // carry and tick updated in place); out: acks (C, Q, DESC_WIDTH) i32,
 // results (C, Q) f32, ctrl_out (C, QCTRL_WIDTH) i32, prof
-// (C, Q, PROF_WIDTH) i32 (K2 only). Returns the launch's cudaError_t.
+// (C, Q, PROF_WIDTH) i32 (K2 only). Returns the cudaError_t of the shared
+// memory attribute call or of the launch; nothing runs if the first fails.
 extern "C" int persistent_drain(const void* ctrl, const void* queue, void* ws,
                                 void* carry, void* tick, void* acks,
                                 void* results, void* ctrl_out, void* prof,
                                 int C, int Q, int nbuf, int profile,
                                 void* stream) {
   if (C < 1) return 0;
+  const int smem = g_smem_request > 0 ? g_smem_request : DRAIN_SMEM_BYTES;
+  const int err = set_drain_smem(smem);
+  if (err) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* ct = static_cast<const int*>(ctrl);
   const int* qu = static_cast<const int*>(queue);
@@ -343,12 +754,20 @@ extern "C" int persistent_drain(const void* ctrl, const void* queue, void* ws,
   int* co = static_cast<int*>(ctrl_out);
   int* pr = static_cast<int*>(prof);
   if (profile)
-    drain_kernel<true><<<C, NT, 0, st>>>(ct, qu, w, ca, ti, ac, re, co, pr, Q,
-                                         nbuf);
+    drain_kernel<true><<<C, DRAIN_NT, smem, st>>>(ct, qu, w, ca, ti, ac, re,
+                                                  co, pr, Q, nbuf);
   else
-    drain_kernel<false><<<C, NT, 0, st>>>(ct, qu, w, ca, ti, ac, re, co, pr, Q,
-                                          nbuf);
+    drain_kernel<false><<<C, DRAIN_NT, smem, st>>>(ct, qu, w, ca, ti, ac, re,
+                                                   co, pr, Q, nbuf);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Fault injection for the tests: the drain launches that follow ask for
+// `bytes` of dynamic shared memory instead of DRAIN_SMEM_BYTES (0 restores
+// it). A size the card cannot give makes persistent_drain return the
+// attribute call's error without launching.
+extern "C" void persistent_drain_request_smem(int bytes) {
+  g_smem_request = bytes;
 }
 
 // K3: queue (C, Q, DESC_WIDTH) i32, ws (C, nbuf, 128, 128) f32 (in place)

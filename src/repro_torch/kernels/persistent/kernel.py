@@ -7,7 +7,9 @@ Port of ``repro.kernels.persistent.kernel`` (``_drain_kernel``,
 ``persistent_drain_prof`` and ``persistent_execute`` launch the CUDA kernels
 in ``csrc/persistent.cu`` for CUDA tensors and use the plain versions
 (``drain_plain``, ``execute_plain``) for CPU tensors — the only case in which
-they do. On a CUDA tensor they launch the kernel or raise.
+they do. On a CUDA tensor they launch the kernel or raise. K1/K2 form their
+tile products in 3xTF32 on the tensor cores (within 1e-4 of the plain
+version's f32 ``torch.bmm``); K3 in f32 FFMA.
 
 Where the reference's numpy oracle and its Pallas kernel differ, both
 versions here follow the kernel: a tile index ``i`` (``dst``, ``a`` or
@@ -75,6 +77,8 @@ def library() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.persistent_drain.argtypes = [vp] * 9 + [ci, ci, ci, ci, vp]
         lib.persistent_drain.restype = ci
+        lib.persistent_drain_request_smem.argtypes = [ci]
+        lib.persistent_drain_request_smem.restype = None
         lib.persistent_execute.argtypes = [vp, vp, vp, ci, ci, ci, vp]
         lib.persistent_execute.restype = ci
         lib.persistent_error_string.argtypes = [ci]

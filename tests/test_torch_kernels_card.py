@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import repro_torch.kernels.persistent as P
+from repro_torch.kernels.persistent import kernel as PK
 from repro_torch.core import mailbox as mb
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
@@ -187,9 +188,9 @@ def test_ssd_through_kernel_matches_sequential_oracle_on_card(cuda, S,
     torch.testing.assert_close(st, want_st, atol=1e-4, rtol=1e-4)
 
 
-def _tile_queue(seed, C, Q):
+def _tile_queue(seed, C, Q, nbuf=4, scale=0.1):
     """Random programs over every drain opcode with dst/a/b drawn from
-    -2..9 on a 4-tile workspace (aliasing and out-of-range indices), a
+    -2..9 on an nbuf-tile workspace (aliasing and out-of-range indices), a
     chunked row per cluster, random [head, tail) windows, one stopped
     cluster."""
     rng = np.random.default_rng(seed)
@@ -208,19 +209,98 @@ def _tile_queue(seed, C, Q):
         head = int(rng.integers(0, 3))
         ctrls.append(mb.queue_control(tail=int(rng.integers(head, Q + 1)),
                                       head=head, stop=int(c == C - 1)))
-    ws = (rng.standard_normal((C, 4, P.TILE, P.TILE)) * 0.1).astype(
+    return _tile_state(rng, np.stack(ctrls), np.stack(rings), nbuf, scale)
+
+
+def _tile_state(rng, ctrl, ring, nbuf, scale):
+    C = ring.shape[0]
+    ws = (rng.standard_normal((C, nbuf, P.TILE, P.TILE)) * scale).astype(
         np.float32)
-    return (torch.from_numpy(np.stack(ctrls)),
-            torch.from_numpy(np.stack(rings)), torch.from_numpy(ws),
+    return (torch.from_numpy(ctrl), torch.from_numpy(ring),
+            torch.from_numpy(ws),
             torch.from_numpy(rng.uniform(-1, 1, (C, 1)).astype(np.float32)),
             torch.from_numpy(rng.integers(0, 9, (C, 1)).astype(np.int32)))
 
 
+def _program_queue(seed, programs, Q, nbuf=8, scale=0.1, window=None):
+    """Per-cluster lists of (opcode, dst, a, b) rows (None: an inactive
+    NOP-status row), all clusters with the same (head, tail) window."""
+    rings, ctrls = [], []
+    for c, prog in enumerate(programs):
+        descs = [mb.nop_descriptor() if row is None else mb.WorkDescriptor(
+            opcode=row[0], arg0=P.pack_args(row[1], row[2])[0], arg1=row[3],
+            request_id=1000 * c + i) for i, row in enumerate(prog)]
+        rings.append(mb.descriptor_ring(descs, Q))
+        head, tail = window or (0, Q)
+        ctrls.append(mb.queue_control(tail=tail, head=head))
+    return _tile_state(np.random.default_rng(seed), np.stack(ctrls),
+                       np.stack(rings), nbuf, scale)
+
+
+MM, ADD, RELU = P.OP_MATMUL, P.OP_ADD, P.OP_RELU
+
+
+def _chained(C, Q):
+    """Each row's dst is the next row's a (no row may be prefetched);
+    every 8th row is D += A @ D."""
+    return [[(MM, 2 + (i + c + 1) % 6, 2 + (i + c) % 6,
+              2 + (i + c + 1) % 6 if i % 8 == 7 else (i + c) % 2)
+             for i in range(Q)] for c in range(C)]
+
+
+def _independent(C, Q):
+    """Products of the never-written tiles 0 and 1 (every next row is
+    prefetched)."""
+    return [[(MM, 2 + (i + c) % 6, (i + c) % 2, (i + c + 1) % 2)
+             for i in range(Q)] for c in range(C)]
+
+
+# prefetch taken (t) and refused (r), with inactive rows and other opcodes
+# between products, and a last product whose next row lies past the tail
+PREFETCH = [
+    (MM, 2, 0, 1),        # t: the next product reads 0, 1
+    (MM, 3, 0, 1),        # r: the next product reads 3
+    (MM, 4, 3, 1),        # t: across two inactive rows
+    None, None,
+    (MM, 5, 1, 0),        # r: the next active row is an ADD
+    (ADD, 6, 5, 1),
+    (MM, 6, 0, 0),        # r: the next product reads 6 as b
+    (MM, 7, 1, 6),        # t
+    (MM, 2, 0, 1),        # t: it writes 2, the next writes 2 too
+    (MM, 2, 1, 1),        # r: the next product reads 2 as b
+    (MM, 4, 4, 2),        # r: dst == a; the next active row is a RELU
+    (RELU, 3, 4, 0),
+    (MM, 5, 0, 1),        # last row inside the window: nothing to prefetch
+    (MM, 6, 0, 1),        # past the tail
+]
+
+DRAIN_CASES = {
+    "random_seed0": lambda: _tile_queue(0, 4, 16),
+    "random_seed1": lambda: _tile_queue(1, 4, 16),
+    "chained_C4_Q64": lambda: _program_queue(
+        5, _chained(4, 64), 64, scale=0.025),
+    # dst == a (D += D @ B), dst == b (D += A @ D), dst == a == b
+    "aliasing": lambda: _program_queue(6, [
+        [(MM, 2, 2, 0), (MM, 3, 1, 3), (MM, 4, 4, 4), (MM, 2, 0, 2),
+         (MM, 3, 3, 1), (MM, 5, 5, 5)]] * 2, 8, scale=0.05),
+    "nbuf1": lambda: _tile_queue(7, 3, 12, nbuf=1, scale=0.02),
+    "nbuf8": lambda: _tile_queue(8, 4, 16, nbuf=8),
+    "C1_Q1": lambda: _program_queue(9, [[(MM, 3, 0, 1)]], 1),
+    "C1_Q64": lambda: _program_queue(10, _independent(1, 64), 64),
+    "C1_Q64_chained": lambda: _program_queue(
+        11, _chained(1, 64), 64, scale=0.025),
+    "prefetch_taken_and_refused": lambda: _program_queue(
+        12, [PREFETCH, PREFETCH[::-1]], 16, window=(0, 14)),
+}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("case", list(DRAIN_CASES))
 @pytest.mark.parametrize("profile", [False, True])
-def test_drain_kernel_matches_plain_on_card(cuda, seed, profile):
-    ctrl, ring, ws, carry, tick = _tile_queue(seed, 4, 16)
+def test_drain_kernel_matches_plain_on_card(cuda, case, profile):
+    """K1/K2 (3xTF32 products from the cp.async ring) against the plain
+    version: ints equal, floats within 1e-4."""
+    ctrl, ring, ws, carry, tick = DRAIN_CASES[case]()
     plain_args = [t.to(cuda) for t in (ctrl, ring, ws, carry, tick)]
     kern_args = [t.to(cuda) for t in (ctrl, ring, ws, carry, tick)]
     fn = P.persistent_drain_prof if profile else P.persistent_drain
@@ -235,6 +315,32 @@ def test_drain_kernel_matches_plain_on_card(cuda, seed, profile):
         else:
             torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
     assert got[4][:, mb.QC_DRAINED].sum() > 0
+    assert float(want[0].abs().max()) < 1e4
+
+
+@pytest.mark.gpu
+def test_drain_launcher_raises_when_shared_memory_is_refused(cuda):
+    """A shared-memory attribute the card refuses makes the wrapper raise
+    and launch nothing (no count, workspace untouched); the next launch
+    with the ring's own size runs."""
+    lib = PK.library()
+    ctrl, ring, ws, carry, _ = (t.to(cuda) for t in
+                                _program_queue(13, [[(MM, 3, 0, 1)]], 1))
+    ws0 = ws.clone()
+    before = P.persistent_drain.launches
+    lib.persistent_drain_request_smem(300_000)    # > 227 KB a block
+    try:
+        with pytest.raises(RuntimeError, match="persistent_drain"):
+            P.persistent_drain(ctrl, ring, ws, carry)
+    finally:
+        lib.persistent_drain_request_smem(0)
+    torch.cuda.synchronize()
+    assert P.persistent_drain.launches == before
+    assert torch.equal(ws, ws0)
+    P.persistent_drain(ctrl, ring, ws, carry)
+    torch.cuda.synchronize()
+    assert P.persistent_drain.launches == before + 1
+    assert not torch.equal(ws, ws0)
 
 
 @pytest.mark.gpu

@@ -5,8 +5,14 @@ queues and workspaces, made by numpy from a seed. Acks, control words,
 profile rows, ticks and from_gpu rows are exact; workspaces, results and
 carries agree within rtol/atol 1e-4 (f32 sums in another order). The cases
 include what the reference's numpy oracle gets wrong and its kernel does
-not: out-of-range and negative tile indices and opcodes."""
+not: out-of-range and negative tile indices and opcodes.
+
+K1/K2 form tile products in 3xTF32 on the card; a numpy emulation of that
+split holds the plain drain to its f32 self on ``chip_smoke.py``'s queues
+before any card time is spent."""
+import importlib.util
 import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -252,14 +258,176 @@ def test_tile_state_and_helpers_match_reference():
     assert P.TILE_OP_NAMES == J.TILE_OP_NAMES
 
 
-def test_cuda_source_constants_equal_python():
-    """The layout constants spelled out in csrc/persistent.cu equal the
-    mailbox's and the kernel module's."""
+# csrc/persistent.cu's own geometry (no Python counterpart), held to what
+# the kernel relies on below
+GEOMETRY = {"NT", "KB", "DRAIN_WARPS_M", "DRAIN_WARPS_N", "RING_STAGES",
+            "RING_KB", "RING_A_LD", "RING_B_LD", "SMALL_BUFFERS"}
+H100_SMEM_OPTIN = 232448     # bytes of shared memory a block may opt into
+H100_REGS = 65536            # 32-bit registers of an SM
+
+
+def _source_constants() -> dict:
+    """Every ``constexpr int`` of csrc/persistent.cu, evaluated in order
+    (literals, or C++ integer expressions of the ones before)."""
     src = PK.SOURCE.read_text()
-    consts = dict(re.findall(r"constexpr int (\w+) = (-?\d+);", src))
+    consts = {}
+    for name, expr in re.findall(r"constexpr int (\w+)\s*=\s*([^;]+);", src):
+        consts[name] = int(eval(expr.replace("/", "//"),
+                                {"__builtins__": {}}, dict(consts)))
+    return consts
+
+
+def test_cuda_source_constants_equal_python():
+    """Every constant spelled out in csrc/persistent.cu is covered: a
+    literal equals the mailbox's or the kernel module's constant of the
+    same name, or is one of the kernel's geometry constants checked in
+    ``test_cuda_ring_geometry``; the rest are expressions of those."""
+    src = PK.SOURCE.read_text()
+    consts = _source_constants()
+    literals = dict(re.findall(r"constexpr int (\w+) = (-?\d+);", src))
     names = [n for n in consts if hasattr(t_mb, n) or hasattr(PK, n)]
     assert len(names) >= 35
     for name in names:
         want = getattr(t_mb, name) if hasattr(t_mb, name) else \
             getattr(PK, name)
-        assert int(consts[name]) == want, name
+        assert consts[name] == want, name
+    assert set(literals) <= set(names) | GEOMETRY, \
+        set(literals) - set(names) - GEOMETRY
+    assert GEOMETRY <= set(literals)
+
+
+def test_cuda_ring_geometry():
+    """K1/K2's warp grid covers the 128 x 128 product in m16n8 tiles; the
+    operand ring holds a stage per k-block of one whole product with
+    16-byte rows for cp.async, and mma.sync fragment reads on 32 distinct
+    banks (A [m][k]: lane = 4 g + t reads row g, column t; B [k][n]: row
+    t, column g); ring and small-half buffers take more shared memory than
+    the 48 KB static limit but no more than a block may opt into."""
+    k = _source_constants()
+    assert k["NT"] == 256 and TILE % k["KB"] == 0 and k["LDA"] == TILE + 1
+    assert k["DRAIN_NT"] == 32 * k["DRAIN_WARPS_M"] * k["DRAIN_WARPS_N"]
+    assert k["WARP_MT"] * 16 * k["DRAIN_WARPS_M"] == TILE
+    assert k["WARP_NT"] * 8 * k["DRAIN_WARPS_N"] == TILE
+    assert k["DRAIN_NT"] * 128 <= H100_REGS       # 128 registers a thread
+    assert k["RING_STAGES"] * k["RING_KB"] == TILE
+    assert k["RING_A_LD"] >= k["RING_KB"] and k["RING_B_LD"] >= TILE
+    assert k["RING_A_LD"] % 4 == 0 and k["RING_B_LD"] % 4 == 0
+    assert k["KBLOCK_FLOATS"] // 4 % k["DRAIN_NT"] == 0
+    pairs = [(g, t) for g in range(8) for t in range(4)]
+    assert len({(g * k["RING_A_LD"] + t) % 32 for g, t in pairs}) == 32
+    assert len({(t * k["RING_B_LD"] + g) % 32 for g, t in pairs}) == 32
+    assert k["STAGE_FLOATS"] == TILE * k["RING_A_LD"] + \
+        k["RING_KB"] * k["RING_B_LD"]
+    assert k["DRAIN_SMEM_BYTES"] == 4 * k["STAGE_FLOATS"] * (
+        k["RING_STAGES"] + k["SMALL_BUFFERS"])
+    assert 48 * 1024 < k["DRAIN_SMEM_BYTES"] + 4 * k["DRAIN_NT"] // 32 <= \
+        H100_SMEM_OPTIN
+
+
+# ---------------------------------------------------------------------------
+# 3xTF32, emulated: what K1/K2 compute on the card, before any card time
+# ---------------------------------------------------------------------------
+
+def _tf32_rna(x):
+    """``cvt.rna.tf32.f32`` on the f32 bit pattern: round to tf32's 10-bit
+    mantissa, to nearest with ties away from zero (add half the range of
+    the 13 dropped bits to the magnitude, then clear them); inf and NaN
+    pass unchanged."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    finite = (u & np.uint32(0x7F800000)) != np.uint32(0x7F800000)
+    r = np.where(finite, (u + np.uint32(0x1000)) & np.uint32(0xFFFFE000), u)
+    return r.astype(np.uint32).view(np.float32)
+
+
+def _split(x):
+    """x = big + small, both tf32, and big masked to 0 where it is not
+    finite: small is 0 there, and the masked big is what the cross terms
+    take, so inf * small (inf * 0, or inf of the wrong sign) never makes
+    NaN."""
+    big = _tf32_rna(x)
+    finite = np.isfinite(big)
+    with np.errstate(invalid="ignore"):
+        small = _tf32_rna(np.where(finite, x - big, 0).astype(np.float32))
+    zero = np.float32(0)
+    return big, np.where(finite, small, zero), np.where(finite, big, zero)
+
+
+def _bmm_3xtf32(A, B):
+    """The kernel's tile product: a_small @ b_big' + a_big' @ b_small +
+    a_big @ b_big (small @ small dropped; ' is the masked big), summed in
+    f64 and rounded to f32 once, so that what differs from the f32 plain
+    version is the split's own error and not a third summation order."""
+    ab, as_, abm = (t.astype(np.float64) for t in _split(A.numpy()))
+    bb, bs, bbm = (t.astype(np.float64) for t in _split(B.numpy()))
+    with np.errstate(invalid="ignore", over="ignore"):
+        return torch.from_numpy(
+            ((as_ @ bbm + abm @ bs) + ab @ bb).astype(np.float32))
+
+
+def _chip_smoke():
+    """``chip_smoke.py``'s queue builders (importing it needs no card)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    ulp = 2.0 ** -10                       # tf32's ulp at 1.0
+    x = np.array([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2 ** -20,
+                  1 + 3 * ulp / 2, np.inf, -np.inf,
+                  np.finfo(np.float32).max], np.float32)
+    want = np.array([1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, np.inf, -np.inf,
+                     np.inf], np.float32)
+    np.testing.assert_array_equal(_tf32_rna(x), want)
+    assert np.isnan(_tf32_rna(np.array([np.nan], np.float32)))[0]
+    assert (_tf32_rna(x[:4]).view(np.uint32) & 0x1FFF == 0).all()
+    # big + small carries 21-22 significant bits of x
+    x = np.random.default_rng(0).standard_normal(4096).astype(np.float32)
+    big, small, _ = _split(x)
+    np.testing.assert_allclose(big.astype(np.float64) + small, x,
+                               rtol=2.0 ** -20, atol=0)
+
+
+def test_3xtf32_propagates_inf_as_ffma_does():
+    """An inf operand gives inf, not NaN, in the row it reaches, as f32
+    math does: small is 0 where big is not finite (x - big would be NaN),
+    and the cross terms take that big as 0 (inf * b_small is NaN where
+    b_small is 0, and -inf where it is negative)."""
+    rng = np.random.default_rng(1)
+    A = rng.uniform(0.5, 1, (1, TILE, TILE)).astype(np.float32)
+    B = rng.uniform(0.5, 1, (1, TILE, TILE)).astype(np.float32)
+    A[0, 3, 7] = np.inf
+    got = _bmm_3xtf32(torch.from_numpy(A), torch.from_numpy(B)).numpy()
+    want = A @ B
+    assert np.isposinf(got[0, 3]).all() and np.isposinf(want[0, 3]).all()
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], **TOL)
+
+
+@pytest.mark.parametrize("queue", ["matmul", "mixed", "chained"])
+def test_3xtf32_drain_matches_plain_on_smoke_queues(queue, monkeypatch):
+    """The plain drain with its tile products formed as the card forms
+    them (3xTF32) against the plain drain in f32, on the first clusters of
+    ``chip_smoke.py``'s queues (its builders, seed 0; the chained queue on
+    its scaled workspace): ints equal, floats within the card's 1e-4."""
+    cs = _chip_smoke()
+    inp = cs.tile_inputs(C=4, device="cpu")
+    ctrl, ring = inp[queue]
+    ws = inp["ws"] * (cs.CHAIN_SCALE if queue == "chained" else 1.0)
+
+    def drain():
+        return PK.drain_plain(ctrl, ring, ws.clone(), inp["carry"].clone(),
+                              inp["tick"].clone())
+
+    want = drain()
+    monkeypatch.setattr(torch, "bmm", _bmm_3xtf32)
+    got = drain()
+    for g, w in zip(got, want):
+        if g.dtype == torch.int32:
+            assert torch.equal(g, w)
+        else:
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    assert not torch.equal(got[0], want[0])      # the split did take effect
+    assert float(want[0].abs().max()) < 1e4
