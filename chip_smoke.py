@@ -22,7 +22,11 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    prefill; kernel launch counters are zeroed just before each run and read
    just after. Then one prefill + one decode step through the kernel path
    and through the plain-kernel path on the same weights: logits agree
-   within a stated bf16 tolerance. Then the same two serve runs on
+   within a stated bf16 tolerance, and one 2048-token prompt (prefill +
+   one decode step) through K5 and through the plain attention: last
+   position's logits within the same tolerance, argmax agreement, both
+   prefill wall times, K5's launches (one a layer) and its share of the
+   prefill. Then the same two serve runs on
    mamba2-780m at full width (48 layers, d=1536, state 128, chunk 256,
    vocab 50280, tied, bf16): host prefill launches K6 once a layer a
    prompt, chunked prefill never; its decode step time at 4 slots; and one
@@ -343,7 +347,7 @@ def kernel_checks() -> dict:
     # the main path's shapes: a 17-token prompt (serve draws 4..23) and a
     # 4-slot decode over the 128-position cache
     return {"flash_attention": rows[0], "decode_attention": rows[5],
-            "cases": rows}
+            "s2048": rows[2], "cases": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -523,6 +527,73 @@ def ssm_decode_step_ms(model, params, steps: int = 10) -> list:
     return out
 
 
+def long_prompt_run(cfg, model, plain, params, wrapper) -> dict:
+    """One LONG_PROMPT-token prompt (prefill + one decode step) through the
+    kernel path and through the plain path on the same weights: last
+    position's logits of both steps, warm prefill wall times, and the
+    kernel's launches in each timed prefill."""
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, LONG_PROMPT)).astype(np.int32)).to(DEVICE)
+    # one next token for both paths: with random weights the top logits
+    # nearly tie, and each path's own argmax may differ
+    nxt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, 1)).astype(np.int32)).to(DEVICE)
+    out, times, launches = {}, {}, {}
+    for name, m in (("kernel", model), ("plain", plain)):
+        m.prefill(params, {"tokens": prompt}, LONG_PROMPT + 1)   # warm-up
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits0, caches = m.prefill(params, {"tokens": prompt},
+                                    LONG_PROMPT + 1)
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        launches[name] = wrapper.launches
+        logits1, _ = m.decode_step(params, caches, nxt, torch.tensor(
+            [LONG_PROMPT], dtype=torch.int32, device=DEVICE))
+        out[name] = (logits0.float(), logits1.float())
+        del caches
+    torch.cuda.synchronize()
+    errs = [float((a - b).abs().max())
+            for a, b in zip(out["kernel"], out["plain"])]
+    same = [bool((a.argmax(-1) == b.argmax(-1)).all())
+            for a, b in zip(out["kernel"], out["plain"])]
+    return dict(errs=errs, same=same, scale=float(out["plain"][0].abs().max()),
+                prefill_ms=times, launches=launches)
+
+
+def llama_long_prompt_check(k5_ms: float) -> dict:
+    """llama3-8b at full width: one 2048-token prompt through K5 and
+    through the plain attention on the same weights. K5's share of the
+    prefill is its launches times its device time at this shape (phase 3)
+    over the prefill's wall time."""
+    cfg = get_config("llama3-8b")
+    model = build(cfg, device="cuda")
+    plain = build(cfg, device="cuda", plain_kernels=True)
+    params = model.init(0)
+    r = long_prompt_run(cfg, model, plain, params, flash_attention)
+    errs, t, n = r["errs"], r["prefill_ms"], r["launches"]
+    share = n["kernel"] * k5_ms / t["kernel"]
+    log(f"llama3-8b {LONG_PROMPT}-token prompt, K5 vs plain attention: "
+        f"prefill max_abs_err={errs[0]:.3e} decode max_abs_err={errs[1]:.3e} "
+        f"(|logits| max {r['scale']:.2f}, tol {LOGITS_ATOL}) argmax_equal="
+        f"{r['same']} prefill_ms kernel={t['kernel']:.2f} "
+        f"plain={t['plain']:.2f} flash_attention launches kernel="
+        f"{n['kernel']} plain={n['plain']} K5 share of the kernel-path "
+        f"prefill={share:.3f} ({n['kernel']} x {k5_ms:.4f} ms)")
+    if max(errs) > LOGITS_ATOL or not all(math.isfinite(e) for e in errs):
+        raise SystemExit("llama3-8b long prompt: K5-path logits disagree "
+                         "with the plain path")
+    if n["kernel"] != cfg.num_layers or n["plain"] != 0:
+        raise SystemExit(f"llama3-8b long prompt: flash_attention launches "
+                         f"{n}")
+    del params, model, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(r, k5_share=share)
+
+
 def ssm_long_prompt_check() -> dict:
     """mamba2-780m at full width: the 4-slot decode step time, then one
     2048-token prompt (prefill + one decode step) through K6 and through
@@ -535,33 +606,12 @@ def ssm_long_prompt_check() -> dict:
     log(f"mamba2-780m decode step, 4 slots: mean {np.mean(steps):.2f} ms "
         f"min {min(steps):.2f} max {max(steps):.2f} ({len(steps)} steps, "
         f"host clock, synchronized)")
-    rng = np.random.default_rng(0)
-    prompt = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (1, LONG_PROMPT)).astype(np.int32)).to(DEVICE)
-    out, times, launches = {}, {}, {}
-    for name, m in (("kernel", model), ("plain", plain)):
-        m.prefill(params, {"tokens": prompt}, LONG_PROMPT + 1)   # warm-up
-        zero_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits0, caches = m.prefill(params, {"tokens": prompt},
-                                    LONG_PROMPT + 1)
-        torch.cuda.synchronize()
-        times[name] = (time.perf_counter() - t0) * 1e3
-        launches[name] = ssd_chunk.launches
-        nxt = torch.argmax(logits0[:, -1], dim=-1).to(torch.int32)[:, None]
-        logits1, _ = m.decode_step(params, caches, nxt, torch.tensor(
-            [LONG_PROMPT], dtype=torch.int32, device=DEVICE))
-        out[name] = (logits0.float(), logits1.float())
-    torch.cuda.synchronize()
-    errs = [float((a - b).abs().max())
-            for a, b in zip(out["kernel"], out["plain"])]
-    scale = float(out["plain"][0].abs().max())
-    same = [bool((a.argmax(-1) == b.argmax(-1)).all())
-            for a, b in zip(out["kernel"], out["plain"])]
+    r = long_prompt_run(cfg, model, plain, params, ssd_chunk)
+    errs, times, launches, same = (r["errs"], r["prefill_ms"],
+                                   r["launches"], r["same"])
     log(f"mamba2-780m {LONG_PROMPT}-token prompt, K6 vs plain SSD: prefill "
         f"max_abs_err={errs[0]:.3e} decode max_abs_err={errs[1]:.3e} "
-        f"(|logits| max {scale:.2f}, tol {SSM_LOGITS_ATOL}) argmax_equal="
+        f"(|logits| max {r['scale']:.2f}, tol {SSM_LOGITS_ATOL}) argmax_equal="
         f"{same} prefill_ms kernel={times['kernel']:.2f} "
         f"plain={times['plain']:.2f} ssd_chunk launches kernel="
         f"{launches['kernel']} plain={launches['plain']}")
@@ -570,7 +620,7 @@ def ssm_long_prompt_check() -> dict:
         raise SystemExit("mamba2 K6-path logits disagree with the plain path")
     if launches["kernel"] != cfg.num_layers or launches["plain"] != 0:
         raise SystemExit(f"long prompt: ssd_chunk launches {launches}")
-    del params, out
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     return dict(decode_step_ms=steps, prefill_ms=times, err=max(errs))
@@ -1159,6 +1209,7 @@ def main(argv=None) -> int:
     if missing:
         raise SystemExit(f"main path never launched: {missing}")
     logits_check()
+    llama_long = llama_long_prompt_check(checks["s2048"]["ms"])
     ssm_host = serve_run("mamba2-780m", "host_prefill", [])
     ssm_chunked = serve_run("mamba2-780m", "chunked_prefill", chunked_args)
     layers = get_config("mamba2-780m").num_layers
@@ -1186,6 +1237,16 @@ def main(argv=None) -> int:
         if name in ATTENTION:
             row, launches = checks[name], host[name]
             extra["launches_chunked_prefill"] = chunked[name]
+            extra["eager_call_ms"] = row["eager_ms"]
+            if name == "flash_attention":
+                big = checks["s2048"]
+                extra["at_" + big["case"]] = {
+                    k: big[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")}
+                extra["launches_long_prompt"] = \
+                    llama_long["launches"]["kernel"]
+                extra["long_prompt_prefill_ms"] = llama_long["prefill_ms"]
+                extra["long_prompt_k5_share"] = llama_long["k5_share"]
         elif name == "ssd_chunk":
             # launches on mamba2-780m's serve runs; times at the serve
             # shape, the 2048-token shape beside them

@@ -12,22 +12,33 @@
 // useful operations, 4*S^2*D*Hq/2 for causal, outweigh the bytes (q, k, v, o
 // each once), so it is operation-bound; short prompts are bound by launch
 // and memory latency. What the design does about the bound:
-// * bf16 (the serving path) runs on the tensor cores with warp-level
-//   mma.sync m16n8k16 (bf16 in, f32 accumulate): a CTA of 4 warps owns 64
-//   query rows of one head, each warp 16 rows whose Q fragments, running
-//   (m, l) and O accumulator stay in registers (FlashAttention-2 layout: the
-//   S accumulator is re-packed in registers as the A operand of P·V, P in
-//   bf16 as the reference's XLA path casts p to v's dtype). K/V tiles stream
-//   through shared memory, rows padded by 16 bytes so the fragment loads
-//   (32-bit for K, ldmatrix.trans for V) are bank-conflict free.
+// * bf16 (the serving path) is FlashAttention-3's shape, written by hand:
+//   both products on wgmma (the only route to the tensor cores' full
+//   rate), S = Q·Kᵀ from shared memory, O += P·V with P converted in place
+//   from the S accumulator to bf16 A fragments in registers; K/V tiles
+//   stream by TMA through a ring of mbarrier-guarded stages while the two
+//   consumer warpgroups compute, a producer warpgroup (its registers given
+//   to the consumers with setmaxnreg) issuing the copies; the two
+//   consumers take turns to issue their products (pingpong), and inside
+//   a warpgroup tile j's softmax runs while tile j-1's P·V is on the
+//   tensor cores; scale·log2(e) folded into one multiply before ex2; the
+//   mask only on tiles that cross the causal diagonal, the window's lower
+//   edge or kv_len, tiles outside the band never loaded; a persistent
+//   grid (one CTA an SM) walks the query blocks heaviest first, each
+//   CTA's next Q and K/V loading while it finishes the block before;
+//   prompts of at most 64 tokens (the serve
+//   path's) take an instance with 64-key stages, the idle consumer
+//   warpgroup leaving at once. ptxas (sm_90a, CUDA 12.9): PERF.md, PR 15.
 // * f32 runs an exact FFMA kernel (bounded by the 67 TFLOP/s f32 rate): one
 //   (query block, head) per CTA, D/32 dims per thread with D/32 threads per
-//   query row finishing each dot product with xor-shuffles.
-// Both load a K/V tile once per query block and skip tiles outside the
-// causal/window band. wgmma/TMA and a producer warp come later.
+//   query row finishing each dot product with xor-shuffles; it loads a K/V
+//   tile once per query block and skips tiles outside the band.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC (see repro_torch/kernels/_build.py).
+//        -Xcompiler -fPIC (see repro_torch/kernels/_build.py). The tensor
+//        maps' encoder comes from the driver through the runtime
+//        (cudaGetDriverEntryPoint), so the library needs no -lcuda.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -38,17 +49,12 @@ constexpr int THREADS = 256;
 constexpr int BK = 64;           // keys per shared-memory tile
 constexpr float NEG = -1e30f;    // the reference's NEG_INF
 
-// ---- 16-byte vector loads/stores with f32 conversion ----------------------
+// ---- 16-byte vector loads/stores (the f32 path) ---------------------------
 template <typename T> struct Vec;
 template <> struct Vec<float> { static constexpr int N = 4; };
-template <> struct Vec<__nv_bfloat16> { static constexpr int N = 8; };
 
 __device__ __forceinline__ void unpack(uint32_t w, float* out, float) {
   out[0] = __uint_as_float(w);
-}
-__device__ __forceinline__ void unpack(uint32_t w, float* out, __nv_bfloat16) {
-  out[0] = __uint_as_float(w << 16);
-  out[1] = __uint_as_float(w & 0xffff0000u);
 }
 
 template <typename T>
@@ -63,11 +69,6 @@ __device__ __forceinline__ void load16(const T* p, float* out) {
 
 __device__ __forceinline__ uint32_t pack(const float* in, float) {
   return __float_as_uint(in[0]);
-}
-__device__ __forceinline__ uint32_t pack(const float* in, __nv_bfloat16) {
-  const uint32_t lo = __bfloat16_as_ushort(__float2bfloat16_rn(in[0]));
-  const uint32_t hi = __bfloat16_as_ushort(__float2bfloat16_rn(in[1]));
-  return lo | (hi << 16);
 }
 
 template <typename T>
@@ -245,254 +246,713 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* o,
   }
 }
 
-// ---- tensor-core path (bf16) -----------------------------------------------
+// ---- tensor-core path (bf16): wgmma fed by a TMA/mbarrier ring -------------
+//
+// A work item is BQ = 128 query rows of one (batch, head): warpgroups 0
+// and 1 are consumers (64 rows each: Q·Kᵀ and P·V by wgmma, the online
+// softmax in registers), warpgroup 2 the producer (one thread issues every
+// TMA copy). Q arrives once an item; K and V stream through rings of
+// STAGES stages, each
+// stage with a full barrier (the TMA's transaction count) and an empty
+// barrier (one arrival per consumer warp: a K stage once its Q·Kᵀ is done,
+// a V stage once its P·V is done, so K of the next tile loads while the
+// softmax runs).
+// Every tile is stored as 64-column slabs of 128-byte rows in the TMA's
+// 128-byte swizzle, which is the layout wgmma's B128 descriptors read:
+// Q and K K-major (head dim contiguous), V MN-major for B (transposed).
+// A persistent grid of at most one CTA an SM walks the (query block,
+// head, sequence) items; Q is released (q_empty) once both consumers'
+// last Q·Kᵀ of an item is done, so the next item's Q loads meanwhile.
+
+constexpr int BQ = 128;           // query rows a CTA
+constexpr int WG_ROWS = 64;       // query rows a consumer warpgroup
+constexpr int CONSUMERS = BQ / WG_ROWS;
+constexpr int TC_THREADS = 128 * (CONSUMERS + 1);
+constexpr int TMA_BOX = 64;       // inner box: 64 bf16 = 128 bytes, one swizzle row
+constexpr int SLAB_ROW_BYTES = 2 * TMA_BOX;
+constexpr int SMEM_ALIGN = 1024;  // the 128-byte swizzle repeats every 8 rows
+constexpr int BAR_BYTES = 256;    // mbarriers (8 bytes each), after the tiles
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+// per head dim: keys a stage and ring depth, and the dynamic shared memory
+// (alignment slack + Q + STAGES x (K + V) + barriers)
+constexpr int BK_D64 = 128;
+constexpr int STAGES_D64 = 4;
+constexpr int SMEM_D64 = SMEM_ALIGN + BQ * 64 * 2 + STAGES_D64 * 2 * BK_D64 * 64 * 2 + BAR_BYTES;
+constexpr int BK_D128 = 128;
+constexpr int STAGES_D128 = 2;
+constexpr int SMEM_D128 = SMEM_ALIGN + BQ * 128 * 2 + STAGES_D128 * 2 * BK_D128 * 128 * 2 + BAR_BYTES;
+constexpr int BK_D256 = 64;
+constexpr int STAGES_D256 = 2;
+constexpr int SMEM_D256 = SMEM_ALIGN + BQ * 256 * 2 + STAGES_D256 * 2 * BK_D256 * 256 * 2 + BAR_BYTES;
+// S <= 64 (the serve path's short prompts): 64-key stages, half the
+// products and exponentials of a 128-key stage, in the same ring
+constexpr int BK_SHORT = 64;
+
+template <int D> struct TcCfg;
+template <> struct TcCfg<64> {
+  static constexpr int STAGES = STAGES_D64, SMEM = SMEM_D64;
+};
+template <> struct TcCfg<128> {
+  static constexpr int STAGES = STAGES_D128, SMEM = SMEM_D128;
+};
+template <> struct TcCfg<256> {
+  static constexpr int STAGES = STAGES_D256, SMEM = SMEM_D256;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarrier ---------------------------------------------------------------
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// Returns once the barrier's phase differs from `parity`. A wait that
+// outlasts ~2^30 polls (seconds) traps: a lost arrival or copy then fails
+// the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  uint32_t polls = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (++polls == (1u << 30)) __trap();
+  } while (!done);
+}
+
+// one box of the 4-D tensor map (D, H, S, B) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3) : "memory");
+}
+
+// ---- wgmma --------------------------------------------------------------------
+// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// byte offset (MN-major: between 64-element slabs), stride byte offset
+// (between groups of 8 rows of 128 bytes), all in 16-byte units.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((8 * SLAB_ROW_BYTES) >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// 2^x on the special-function unit; results below 2^-126 flush to 0 (a
+// weight that small beside the row's largest, 1, changes no sum)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+// keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// The products, operand lists written out: m64nNk16, f32 += bf16 x bf16.
+// SS: A and B from shared memory, both K-major. RS: A from registers (the
+// m16n8k16 A-fragment layout per warp), B MN-major (transposed).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+
+template <int N> struct Wgmma;
+template <> struct Wgmma<64> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int s) { wgmma_ss_n64(d, a, b, s); }
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int s) { wgmma_rs_n64(d, a, b, s); }
+};
+template <> struct Wgmma<128> {
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int s) { wgmma_ss_n128(d, a, b, s); }
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int s) { wgmma_rs_n128(d, a, b, s); }
+};
+template <> struct Wgmma<256> {
+  static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b, int s) { wgmma_rs_n256(d, a, b, s); }
+};
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const uint32_t a = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
   const uint32_t b = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
   return a | (b << 16);
 }
 
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// four 8x8 b16 matrices, transposed on the way in (V tile -> B fragments)
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* smem) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-constexpr int MMA_WARPS = 4;
-constexpr int MMA_BQ = 16 * MMA_WARPS;   // query rows per CTA
-
-template <int D> struct MmaTile {
-  static constexpr int BK = D == 256 ? 32 : 64;   // keys per tile
-  static constexpr int STR = D + 8;               // padded smem row
+// Scores enter the softmax already in log2 units: without a softcap
+// x = s * scale * log2(e) (one multiply); with one,
+// x = tanh(s * scale / softcap) * softcap * log2(e). Masked scores are NEG.
+struct TcArgs {
+  __nv_bfloat16* o;
+  int B, S, Hq, Hkv, causal, window, kv_len;
+  int n_qb;            // query blocks a (sequence, head): ceil(S / BQ)
+  float softcap;       // > 0: apply the tanh softcap
+  float scale_log2;    // scale * log2(e)
+  float cap_in;        // scale / softcap
+  float cap_out;       // softcap * log2(e)
 };
 
-// grid (ceil(S/64), Hq, B); 128 threads. Lane l of warp w holds query rows
-// r0 = q0 + 16w + l/4 and r1 = r0 + 8, and columns 2*(l%4) + {0,1} of every
-// 8-wide accumulator tile (the mma.sync C layout).
-template <int D>
-__global__ void __launch_bounds__(32 * MMA_WARPS)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, int S, int Hq, int Hkv,
-                     int causal, int window, float softcap, int kv_len,
-                     float scale) {
-  constexpr int BKM = MmaTile<D>::BK;
-  constexpr int STR = MmaTile<D>::STR;
-  constexpr int KS = D / 16;          // k-steps of Q.K^T over the head dim
-  constexpr int NT = BKM / 8;         // 8-key tiles of S per warp
-  constexpr int DT = D / 8;           // 8-dim tiles of O per warp
-  constexpr int VPR = D / 8;          // 16-byte vectors per K/V row
+// The key tiles [j_begin, j_end) a query block [q0, q0 + BQ) reads: keys
+// before the window's lower edge and after the causal diagonal or kv_len
+// are never loaded.
+template <int BKT>
+__device__ __forceinline__ void tile_range(const TcArgs& a, int q0,
+                                           int& j_begin, int& j_end) {
+  const int q_hi = min(q0 + BQ - 1, a.S - 1);
+  int k_end = a.kv_len;
+  if (a.causal) k_end = min(k_end, q_hi + 1);
+  const int k_begin = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  j_begin = k_begin / BKT;
+  j_end = k_end > k_begin ? (k_end + BKT - 1) / BKT : j_begin;
+}
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + BKM * STR;
+// The grid is persistent: G = gridDim.x CTAs (at most one an SM) walk the
+// work items, query block x head x sequence, heaviest first: item i is
+// query block n_qb - 1 - i / (B Hq) of head i % Hq of sequence
+// (i / Hq) % B. CTA c takes items c, 2G - 1 - c, 2G + c, 4G - 1 - c, ...
+// (a snake over rounds of G items), which evens out the causal work; a
+// CTA's next Q and K/V tiles load while it finishes the item before.
+struct Item {
+  int q0, h, b;
+};
+__device__ __forceinline__ int snake_item(int round) {
+  const int G = gridDim.x;
+  return round * G + ((round & 1) ? G - 1 - (int)blockIdx.x : (int)blockIdx.x);
+}
+__device__ __forceinline__ Item item_of(int i, const TcArgs& a) {
+  const int per_block = a.B * a.Hq;
+  Item it;
+  it.q0 = (a.n_qb - 1 - i / per_block) * BQ;
+  it.b = (i % per_block) / a.Hq;
+  it.h = i % a.Hq;
+  return it;
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int q0 = blockIdx.x * MMA_BQ;
-  const int r0 = q0 + warp * 16 + g;
-  const int r1 = r0 + 8;
+template <int D, int BKT>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const TcArgs a) {
+  constexpr int STAGES = TcCfg<D>::STAGES;
+  constexpr int SLABS = D / TMA_BOX;
+  constexpr int Q_SLAB = BQ * SLAB_ROW_BYTES;        // bytes of one Q slab
+  constexpr int KV_SLAB = BKT * SLAB_ROW_BYTES;      // bytes of one K/V slab
+  constexpr int KV_TILE = SLABS * KV_SLAB;
+  constexpr int Q_TILE = SLABS * Q_SLAB;
 
-  // Q as A fragments: {Q[r0][c..c+1], Q[r1][c..], Q[r0][c+8..], Q[r1][c+8..]}
-  uint32_t qa[KS][4];
-  {
-    const __nv_bfloat16* q0p = q + ((size_t)(b * S + r0) * Hq + h) * D;
-    const __nv_bfloat16* q1p = q + ((size_t)(b * S + r1) * Hq + h) * D;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      const int c = ks * 16 + 2 * t;
-      qa[ks][0] = r0 < S ? *reinterpret_cast<const uint32_t*>(q0p + c) : 0u;
-      qa[ks][1] = r1 < S ? *reinterpret_cast<const uint32_t*>(q1p + c) : 0u;
-      qa[ks][2] = r0 < S ? *reinterpret_cast<const uint32_t*>(q0p + c + 8) : 0u;
-      qa[ks][3] = r1 < S ? *reinterpret_cast<const uint32_t*>(q1p + c + 8) : 0u;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + SMEM_ALIGN - 1) &
+                        ~uint32_t(SMEM_ALIGN - 1);
+  const uint32_t sQ = base;
+  const uint32_t sK = sQ + Q_TILE;                   // STAGES K tiles
+  const uint32_t sV = sK + STAGES * KV_TILE;         // STAGES V tiles
+  const uint32_t bars = sV + STAGES * KV_TILE;
+  const uint32_t q_full = bars;
+  const uint32_t q_empty = bars + 8u;
+  // after q_full, q_empty: full_k, full_v, empty_k, empty_v, STAGES each
+  auto full_k = [&](int s) { return bars + 8u * (2 + s); };
+  auto full_v = [&](int s) { return bars + 8u * (2 + STAGES + s); };
+  auto empty_k = [&](int s) { return bars + 8u * (2 + 2 * STAGES + s); };
+  auto empty_v = [&](int s) { return bars + 8u * (2 + 3 * STAGES + s); };
+
+  const int n_items = a.n_qb * a.B * a.Hq;
+  // consumer warpgroups in use: both, unless one holds all of S
+  const int active = a.S > WG_ROWS ? CONSUMERS : 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 4 * active);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_k(s), 4 * active);
+      mbar_init(empty_v(s), 4 * active);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  float oacc[DT][4];
-#pragma unroll
-  for (int i = 0; i < DT; ++i) oacc[i][0] = oacc[i][1] = oacc[i][2] = oacc[i][3] = 0.f;
-  float m[2] = {NEG, NEG};
-  float l[2] = {0.f, 0.f};
+  __syncthreads();
 
-  const int q_hi = min(q0 + MMA_BQ - 1, S - 1);
-  int k_end = kv_len;
-  if (causal) k_end = min(k_end, q_hi + 1);
-  int k_begin = 0;
-  if (window > 0) k_begin = max(0, q0 - window + 1);
-
-  for (int k0 = (k_begin / BKM) * BKM; k0 < k_end; k0 += BKM) {
-    __syncthreads();                   // the previous tile is consumed
-    for (int idx = tid; idx < BKM * VPR; idx += 32 * MMA_WARPS) {
-      const int j = idx / VPR;
-      const int c = idx % VPR;
-      const int kp = k0 + j;
-      uint4 kk = make_uint4(0, 0, 0, 0);
-      uint4 vv = make_uint4(0, 0, 0, 0);
-      if (kp < S) {
-        const size_t off = ((size_t)(b * S + kp) * Hkv + hk) * D + c * 8;
-        kk = *reinterpret_cast<const uint4*>(k + off);
-        vv = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(sK + j * STR + c * 8) = kk;
-      *reinterpret_cast<uint4*>(sV + j * STR + c * 8) = vv;
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x BKM keys
-    float sacc[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) sacc[nt][0] = sacc[nt][1] = sacc[nt][2] = sacc[nt][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const __nv_bfloat16* kp = sK + (nt * 8 + g) * STR + ks * 16 + 2 * t;
-        const uint32_t kb[2] = {*reinterpret_cast<const uint32_t*>(kp),
-                                *reinterpret_cast<const uint32_t*>(kp + 8)};
-        mma_bf16(sacc[nt], qa[ks], kb);
+  // One if/else for the two roles, and no return before either
+  // setmaxnreg: otherwise ptxas cannot tell each role's register count and
+  // keeps the whole kernel at the launch's 168 (spills, serialized wgmma).
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    // ===== producer: one thread issues every copy =====
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 128 * CONSUMERS) {
+      int stage = 0, phase = 0;                      // the next ring slot
+      for (int n = 0;; ++n) {
+        const int i = snake_item(n);
+        if (i >= n_items) break;
+        const Item it = item_of(i, a);
+        const int hk = it.h / (a.Hq / a.Hkv);
+        int j_begin, j_end;
+        tile_range<BKT>(a, it.q0, j_begin, j_end);
+        mbar_wait(q_empty, (n & 1) ^ 1);             // the last Q is read
+        mbar_expect_tx(q_full, Q_TILE);
+        for (int s = 0; s < SLABS; ++s)
+          tma_load(sQ + s * Q_SLAB, &tm_q, q_full, s * TMA_BOX, it.h, it.q0,
+                   it.b);
+        for (int j = j_begin; j < j_end; ++j) {
+          mbar_wait(empty_k(stage), phase ^ 1);
+          mbar_expect_tx(full_k(stage), KV_TILE);
+          for (int s = 0; s < SLABS; ++s)
+            tma_load(sK + stage * KV_TILE + s * KV_SLAB, &tm_k,
+                     full_k(stage), s * TMA_BOX, hk, j * BKT, it.b);
+          mbar_wait(empty_v(stage), phase ^ 1);
+          mbar_expect_tx(full_v(stage), KV_TILE);
+          for (int s = 0; s < SLABS; ++s)
+            tma_load(sV + stage * KV_TILE + s * KV_SLAB, &tm_v,
+                     full_v(stage), s * TMA_BOX, hk, j * BKT, it.b);
+          if (++stage == STAGES) { stage = 0; phase ^= 1; }
+        }
       }
     }
+  } else {
+    // ===== consumers: 64 query rows each =====
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    if (wg >= active) return;                        // S fits warpgroup 0
+    const int tw = threadIdx.x % 128;
+    const int warp = tw / 32;
+    const int lane = tw % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const bool has_cap = a.softcap > 0.f;
+    int w0 = 0;                                      // this item's rows:
+    int r0 = 0;                                      // w0.., r0 and r0 + 8
 
-    // scale, softcap, mask; row maxima over the quad that shares a row
-    float mx[2] = {NEG, NEG};
+    float oacc[D / 2];
+    float m[2], l[2];
+
+    // S = Q Kᵀ of the tile in `st`: 64 rows x BKT keys, D / 16 steps
+    auto issue_qk = [&](float (&sc)[BKT / 2], int st) {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t off = (ks % 4) * 32;   // 16 columns a step
+        const uint64_t dq = sw128_desc(
+            sQ + (ks / 4) * Q_SLAB + wg * WG_ROWS * SLAB_ROW_BYTES + off, 0);
+        const uint64_t dk =
+            sw128_desc(sK + st * KV_TILE + (ks / 4) * KV_SLAB + off, 0);
+        Wgmma<BKT>::ss(sc, dq, dk, ks > 0);
+      }
+      wgmma_commit();
+    };
+    // O += P V: V's tile is [key][d], MN-major for B; 16 keys a step
+    auto issue_pv = [&](const uint32_t (&p)[BKT / 16][4], int st) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? r0 : r1;
-        const int col = k0 + nt * 8 + 2 * t + (e & 1);
-        float x = sacc[nt][e] * scale;
-        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-        bool ok = col < kv_len;
-        if (causal) ok = ok && col <= row;
-        if (window > 0) ok = ok && (row - col) < window;
-        x = ok ? x : NEG;
-        sacc[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      for (int kk = 0; kk < BKT / 16; ++kk) {
+        const uint64_t dv = sw128_desc(
+            sV + st * KV_TILE + kk * 16 * SLAB_ROW_BYTES, KV_SLAB);
+        Wgmma<D>::rs(oacc, p[kk], dv, 1);
+      }
+      wgmma_commit();
+    };
+    // scores -> exp2(x - m) in place, in log2 units: without a softcap
+    // x = s * scale * log2(e), with one tanh(s * scale / softcap) * softcap
+    // * log2(e); masked to NEG only on tiles that cross the causal
+    // diagonal, the window's lower edge or kv_len for some row here. m and
+    // l are updated; corr is what O must be scaled by.
+    auto softmax = [&](float (&sc)[BKT / 2], int k0, float (&corr)[2]) {
+      if (has_cap) {
+#pragma unroll
+        for (int i = 0; i < BKT / 2; ++i)
+          sc[i] = tanhf(sc[i] * a.cap_in) * a.cap_out;
+      } else {
+#pragma unroll
+        for (int i = 0; i < BKT / 2; ++i) sc[i] *= a.scale_log2;
+      }
+      const bool edge = k0 + BKT > a.kv_len ||
+                        (a.causal && k0 + BKT - 1 > w0) ||
+                        (a.window > 0 && k0 < w0 + WG_ROWS - a.window);
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < BKT / 2; ++i) {
+          const int row = r0 + 8 * ((i >> 1) & 1);
+          const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+          bool ok = col < a.kv_len;
+          if (a.causal) ok = ok && col <= row;
+          if (a.window > 0) ok = ok && (row - col) < a.window;
+          if (!ok) sc[i] = NEG;
+        }
+      }
+      // row maxima over the quad that shares a row
+      float mx[2] = {NEG, NEG};
+#pragma unroll
+      for (int i = 0; i < BKT / 2; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        corr[r] = ex2(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= corr[r];
+      }
+#pragma unroll
+      for (int i = 0; i < BKT / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        sc[i] = ex2(sc[i] - m[r]);
+        l[r] += sc[i];
+      }
+    };
+    // P in bf16, converted in place into A fragments of P·V (the m16n8k16
+    // layout: rows r0 / r0 + 8, keys 2t.. and 2t + 8.. of each 16)
+    auto to_bf16 = [&](const float (&sc)[BKT / 2],
+                       uint32_t (&p)[BKT / 16][4]) {
+#pragma unroll
+      for (int kk = 0; kk < BKT / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+    };
+
+    // Pingpong: the two warpgroups take turns to issue their products, so
+    // one's softmax runs while the other's products use the tensor cores
+    // (named barrier 1 + w is warpgroup w's turn; warpgroup 0 goes first).
+    const bool pingpong = active == CONSUMERS;
+    auto my_turn = [&]() {
+      if (pingpong) named_bar_sync(1 + wg, 2 * 128);
+    };
+    auto your_turn = [&]() {
+      if (pingpong) named_bar_arrive(2 - wg, 2 * 128);
+    };
+    if (pingpong && wg == 1) named_bar_arrive(1, 2 * 128);
+
+    int stage = 0, phase = 0;                        // the next ring slot
+    for (int n = 0;; ++n) {
+      const int i = snake_item(n);
+      if (i >= n_items) break;
+      const Item it = item_of(i, a);
+      w0 = it.q0 + wg * WG_ROWS;
+      r0 = w0 + warp * 16 + g;
+      int j_begin, j_end;
+      tile_range<BKT>(a, it.q0, j_begin, j_end);
+#pragma unroll
+      for (int x = 0; x < D / 2; ++x) oacc[x] = 0.f;
+      m[0] = m[1] = NEG;
+      l[0] = l[1] = 0.f;
+
+      // Tile j's Q·Kᵀ and softmax run while tile j - 1's P·V is in
+      // flight; Q is released once the item's last Q·Kᵀ is done.
+      mbar_wait(q_full, n & 1);
+      if (j_begin < j_end) {
+        float s[BKT / 2];
+        uint32_t pa[BKT / 16][4];
+        float corr[2];
+        int cs = stage, cp = phase;                  // tile j's slot
+        if (++stage == STAGES) { stage = 0; phase ^= 1; }
+        mbar_wait(full_k(cs), cp);
+        my_turn();
+        wgmma_fence();
+        issue_qk(s, cs);
+        your_turn();
+        wgmma_wait<0>();
+        fence_regs(s);
+        if (lane == 0) {
+          mbar_arrive(empty_k(cs));
+          if (j_begin + 1 == j_end) mbar_arrive(q_empty);
+        }
+        softmax(s, j_begin * BKT, corr);                // O is still 0
+        to_bf16(s, pa);
+        for (int j = j_begin + 1; j < j_end; ++j) {
+          const int ps = cs, pp = cp;                   // tile j - 1's slot
+          cs = stage;
+          cp = phase;
+          if (++stage == STAGES) { stage = 0; phase ^= 1; }
+          mbar_wait(full_k(cs), cp);
+          mbar_wait(full_v(ps), pp);
+          my_turn();
+          wgmma_fence();
+          issue_qk(s, cs);
+          issue_pv(pa, ps);
+          your_turn();
+          wgmma_wait<1>();                              // Q·Kᵀ done
+          fence_regs(s);
+          if (lane == 0) {
+            mbar_arrive(empty_k(cs));
+            if (j + 1 == j_end) mbar_arrive(q_empty);
+          }
+          softmax(s, j * BKT, corr);
+          wgmma_wait<0>();                              // P·V done
+          fence_regs(oacc);
+          if (lane == 0) mbar_arrive(empty_v(ps));
+#pragma unroll
+          for (int x = 0; x < D / 2; ++x) oacc[x] *= corr[(x >> 1) & 1];
+          to_bf16(s, pa);
+        }
+        mbar_wait(full_v(cs), cp);
+        fence_regs(oacc);
+        my_turn();
+        wgmma_fence();
+        issue_pv(pa, cs);
+        your_turn();
+        wgmma_wait<0>();
+        fence_regs(oacc);
+        if (lane == 0) mbar_arrive(empty_v(cs));
+      } else if (lane == 0) {
+        mbar_arrive(q_empty);
+      }
+
+      // the quad's partial row sums -> full row sums; normalize and store
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        l[r] = 1.f / fmaxf(l[r], 1e-30f);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + 8 * r;
+        if (row < a.S) {
+          __nv_bfloat16* op =
+              a.o + ((size_t)(it.b * a.S + row) * a.Hq + it.h) * D + 2 * t;
+#pragma unroll
+          for (int c = 0; c < D / 8; ++c)
+            *reinterpret_cast<uint32_t*>(op + 8 * c) =
+                pack_bf16(oacc[4 * c + 2 * r] * l[r],
+                          oacc[4 * c + 2 * r + 1] * l[r]);
+        }
       }
     }
-    float corr[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      corr[i] = expf(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= corr[i];
-    }
-#pragma unroll
-    for (int i = 0; i < DT; ++i) {
-      oacc[i][0] *= corr[0];
-      oacc[i][1] *= corr[0];
-      oacc[i][2] *= corr[1];
-      oacc[i][3] *= corr[1];
-    }
-
-    // P (bf16) re-packed in registers as the A operand of P.V
-    uint32_t pa[NT / 2][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const float p0 = expf(sacc[nt][0] - m[0]);
-      const float p1 = expf(sacc[nt][1] - m[0]);
-      const float p2 = expf(sacc[nt][2] - m[1]);
-      const float p3 = expf(sacc[nt][3] - m[1]);
-      l[0] += p0 + p1;
-      l[1] += p2 + p3;
-      pa[nt / 2][(nt & 1) * 2 + 0] = pack_bf16(p0, p1);
-      pa[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-
-    // O += P V: V tile rows are keys, ldmatrix.trans yields B fragments
-    const int mi = lane >> 3;
-    const int ri = lane & 7;
-#pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {
-#pragma unroll
-      for (int dt = 0; dt < DT; dt += 2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(
-            vb, sV + (kk * 16 + (mi & 1) * 8 + ri) * STR + (dt + (mi >> 1)) * 8);
-        mma_bf16(oacc[dt], pa[kk], vb);
-        mma_bf16(oacc[dt + 1], pa[kk], vb + 2);
-      }
-    }
-  }
-
-  // the quad's partial row sums -> full row sums; normalize and store
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    l[i] = 1.f / fmaxf(l[i], 1e-30f);
-  }
-  __nv_bfloat16* o0 = o + ((size_t)(b * S + r0) * Hq + h) * D;
-  __nv_bfloat16* o1 = o + ((size_t)(b * S + r1) * Hq + h) * D;
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (r0 < S)
-      *reinterpret_cast<uint32_t*>(o0 + c) =
-          pack_bf16(oacc[dt][0] * l[0], oacc[dt][1] * l[0]);
-    if (r1 < S)
-      *reinterpret_cast<uint32_t*>(o1 + c) =
-          pack_bf16(oacc[dt][2] * l[1], oacc[dt][3] * l[1]);
+    if (pingpong && wg == 0) named_bar_sync(1, 2 * 128);  // the last turn
   }
 }
 
-template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int Hq, int Hkv, int causal, int window, float softcap,
-               int kv_len, float scale, cudaStream_t stream) {
-  const int smem = 2 * MmaTile<D>::BK * MmaTile<D>::STR *
-                   (int)sizeof(__nv_bfloat16);
-  auto kern = flash_fwd_mma_kernel<D>;
+// ---- host: tensor maps and launch ------------------------------------------
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// Error codes of this file besides cudaError_t (see k5_error_string).
+constexpr int ERR_HEAD_DIM = -1;
+constexpr int ERR_NO_ENCODER = -2;
+constexpr int ERR_ENCODE = -3;
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so the
+// library needs no -lcuda.
+EncodeTiledFn encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+    else
+      cudaGetLastError();
+  }
+  return fn;
+}
+
+// The 4-D view (D, H, S, B) of a contiguous (B, S, H, D) bf16 tensor, boxes
+// of 64 head-dim columns x `rows` positions of one head and one sequence:
+// rows past S are zero-filled on load, never read from the next sequence.
+int encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
+                int rows) {
+  EncodeTiledFn fn = encoder();
+  if (fn == nullptr) return ERR_NO_ENCODER;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 (cuuint64_t)S * H * D * 2};
+  const cuuint32_t box[4] = {TMA_BOX, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
+}
+
+// The dynamic shared memory a launch asks for: the instance's own size, or
+// what k5_request_smem set (a fault-injection hook: a size above the card's
+// opt-in limit makes the attribute call fail, which the launcher reports).
+int g_smem_request = 0;
+
+template <int D, int BKT>
+int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
+              int S, int Hq, int Hkv, int causal, int window, float softcap,
+              int kv_len, float scale, cudaStream_t stream) {
+  const int smem = g_smem_request > 0 ? g_smem_request : TcCfg<D>::SMEM;
+  auto kern = flash_fwd_wgmma_kernel<D, BKT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();    // reported here; the next launch must not see it
+    return (int)err;
+  }
+  CUtensorMap tq, tk, tv;
+  int e = encode_bshd(&tq, q, B, S, Hq, D, BQ);
+  if (!e) e = encode_bshd(&tk, k, B, S, Hkv, D, BKT);
+  if (!e) e = encode_bshd(&tv, v, B, S, Hkv, D, BKT);
+  if (e) return e;
+  constexpr float LOG2E = 1.4426950408889634f;
+  TcArgs a;
+  a.o = static_cast<__nv_bfloat16*>(o);
+  a.S = S; a.Hq = Hq; a.Hkv = Hkv; a.causal = causal; a.window = window;
+  a.kv_len = kv_len; a.softcap = softcap;
+  a.scale_log2 = scale * LOG2E;
+  a.cap_in = softcap > 0.f ? scale / softcap : 0.f;
+  a.cap_out = softcap * LOG2E;
+  a.B = B;
+  a.n_qb = (S + BQ - 1) / BQ;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + MMA_BQ - 1) / MMA_BQ, Hq, B);
-  kern<<<grid, 32 * MMA_WARPS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S,
-      Hq, Hkv, causal, window, softcap, kv_len, scale);
+  const long long items = (long long)a.n_qb * B * Hq;
+  const int grid = (int)(items < sms ? items : sms);   // one CTA an SM
+  kern<<<grid, TC_THREADS, smem, stream>>>(tq, tk, tv, a);
   return (int)cudaGetLastError();
 }
 
 int launch_bf16(int D, const void* q, const void* k, const void* v, void* o,
                 int B, int S, int Hq, int Hkv, int causal, int window,
                 float softcap, int kv_len, float scale, cudaStream_t stream) {
+  // a prompt that one consumer warpgroup holds reads at most 64 keys
+  const bool short_s = S <= WG_ROWS;
   switch (D) {
-    case 64: return launch_mma<64>(q, k, v, o, B, S, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
-    case 128: return launch_mma<128>(q, k, v, o, B, S, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
-    case 256: return launch_mma<256>(q, k, v, o, B, S, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
-    default: return -1;
+    case 64: return short_s ? launch_tc<64, BK_SHORT>(q, k, v, o, B, S, Hq, Hkv, causal, window, softcap, kv_len, scale, stream)
+                            : launch_tc<64, BK_D64>(q, k, v, o, B, S, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
+    case 128: return short_s ? launch_tc<128, BK_SHORT>(q, k, v, o, B, S, Hq, Hkv, causal, window, softcap, kv_len, scale, stream)
+                             : launch_tc<128, BK_D128>(q, k, v, o, B, S, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
+    case 256: return launch_tc<256, BK_D256>(q, k, v, o, B, S, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
+    default: return ERR_HEAD_DIM;
   }
 }
 
 }  // namespace
 
-// Returns 0, a cudaError_t code, or -1 for an unsupported head dim.
+// Returns 0, a cudaError_t code, or a negative code of this file (an
+// unsupported head dim, no tensor-map encoder, a refused tensor map).
 extern "C" int k5_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* o, int B, int S,
                                       int Hq, int Hkv, int D, int is_bf16,
@@ -506,6 +966,17 @@ extern "C" int k5_flash_attention_fwd(const void* q, const void* k,
                          softcap, kv_len, scale, st);
 }
 
+// Fault injection for the tests: the bf16 launches that follow ask for
+// `bytes` of dynamic shared memory instead of their own size (0 restores
+// it). A size the card cannot give makes k5_flash_attention_fwd return the
+// attribute call's error without launching.
+extern "C" void k5_request_smem(int bytes) { g_smem_request = bytes; }
+
 extern "C" const char* k5_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  switch (err) {
+    case ERR_HEAD_DIM: return "unsupported head dim";
+    case ERR_NO_ENCODER: return "cuTensorMapEncodeTiled not found in the driver";
+    case ERR_ENCODE: return "cuTensorMapEncodeTiled refused the tensor map";
+    default: return cudaGetErrorString(static_cast<cudaError_t>(err));
+  }
 }

@@ -36,6 +36,8 @@ def library() -> ctypes.CDLL:
         lib.k5_flash_attention_fwd.restype = ci
         lib.k5_error_string.argtypes = [ci]
         lib.k5_error_string.restype = ctypes.c_char_p
+        lib.k5_request_smem.argtypes = [ci]
+        lib.k5_request_smem.restype = None
         _lib = lib
     return _lib
 
@@ -112,9 +114,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         int(window or 0), float(attn_softcap or 0.0), kv_len,
         1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
-        msg = "unsupported head dim" if err == -1 else \
-            lib.k5_error_string(err).decode()
-        raise RuntimeError(f"flash_attention kernel launch failed: {msg}")
+        raise RuntimeError(f"flash_attention kernel launch failed: "
+                           f"{lib.k5_error_string(err).decode()}")
     flash_attention.launches += 1
     return out
 

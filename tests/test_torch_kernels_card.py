@@ -21,6 +21,7 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
+from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.ssd_scan import (ssd, ssd_chunk, ssd_chunk_plain,
                                           ssd_ref)
 
@@ -57,6 +58,24 @@ GPU_FLASH = [
     (1, 96, 8, 2, 128, torch.bfloat16, dict(causal=False, seq_len=70)),
     (2, 77, 4, 4, 64, torch.bfloat16, {}),
     (1, 150, 8, 2, 256, torch.bfloat16, dict(window=40, attn_softcap=30.0)),
+    # the bf16 kernel's tile edges: 128 query rows a CTA (two 64-row
+    # warpgroups), 128 keys a stage (64 at D=256)
+    (1, 129, 32, 8, 128, torch.bfloat16, {}),
+    (1, 255, 32, 8, 128, torch.bfloat16, {}),
+    (2, 2048, 32, 8, 128, torch.bfloat16, {}),
+    (1, 300, 8, 2, 64, torch.bfloat16, dict(causal=False, seq_len=130)),
+    (1, 200, 8, 2, 256, torch.bfloat16, dict(causal=False, seq_len=130)),
+    (1, 384, 8, 2, 128, torch.bfloat16, dict(window=100)),
+    # B=2 with S no multiple of the block: rows past S of the first
+    # sequence must read zeros, not the second sequence
+    (2, 200, 8, 2, 128, torch.bfloat16, {}),
+    (2, 77, 8, 8, 256, torch.bfloat16, dict(causal=False)),
+    # S <= 64: the 64-key short-prompt instance; S = 65: the 128-key one
+    # with a second warpgroup holding a single row
+    (2, 50, 8, 2, 64, torch.bfloat16, dict(window=20)),
+    (1, 64, 8, 2, 128, torch.bfloat16, dict(causal=False, seq_len=33)),
+    (3, 1, 4, 2, 64, torch.bfloat16, {}),
+    (1, 65, 8, 2, 128, torch.bfloat16, {}),
 ]
 
 
@@ -71,6 +90,42 @@ def test_flash_kernel_matches_plain_on_card(cuda, B, S, Hq, Hkv, D, dtype, kw):
     want = flash_attention_plain(q, k, v, **kw)
     atol = BF16_ATOL if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.gpu
+def test_flash_launcher_raises_when_shared_memory_is_refused(cuda,
+                                                             monkeypatch):
+    """A shared-memory attribute the card refuses makes the wrapper raise
+    and launch nothing (no count, the output it allocated unwritten); the
+    next launch with the instance's own size runs."""
+    lib = FK.library()
+    q, k, v = [t.to(cuda, torch.bfloat16)
+               for t in _t(*_qkv(9, 1, 130, 8, 2, 128))]
+    sentinel = []
+
+    def empty_like(t):
+        out = torch.full_like(t, 7.0)
+        sentinel.append(out)
+        return out
+
+    monkeypatch.setattr(FK.torch, "empty_like", empty_like)
+    before = flash_attention.launches
+    lib.k5_request_smem(300_000)                  # > 227 KB a block
+    try:
+        with pytest.raises(RuntimeError, match="flash_attention"):
+            flash_attention(q, k, v)
+    finally:
+        lib.k5_request_smem(0)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before
+    assert len(sentinel) == 1 and bool((sentinel[0] == 7.0).all())
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got is sentinel[1]
+    torch.testing.assert_close(got.float(),
+                               flash_attention_plain(q, k, v).float(),
+                               atol=BF16_ATOL, rtol=0)
 
 
 GPU_DECODE = [
