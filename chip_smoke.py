@@ -12,7 +12,8 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
 3. kernel checks: each kernel against its plain PyTorch version on the card
    (max abs error within the stated tolerance), with the kernel's, the plain
    version's and a library call's time, and the least time the card could
-   take for the same work;
+   take for the same work; K4's device kernels a call (one: the split
+   partials and their merge are one launch) from a ``torch.profiler`` pass;
    The SSD chunk kernel (K6) likewise, at the serve shape (a 17-token
    chunk), at B=1 S=2048 (8 chunks of 256) and at B=4 S=256, printing the
    largest |want| beside the error;
@@ -41,10 +42,11 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    D += A @ D); and K1/K2 at C = 1, the shape of every ``MegaRuntime``
    launch (a full matmul queue, the chain, a mixed queue with a window, a
    one-row launch): acks, control words, profile rows and ticks exact,
-   workspaces, results and carries within 1e-4 (K1/K2 compute in 3xTF32);
-   kernel time (CUDA-graph replay), plain time, ``torch.bmm`` over the
-   same products, and the bounds: K1/K2's at the TF32 rate, K3's and the
-   f32 FFMA bound at the f32 rate, each also for one SM a cluster;
+   workspaces, results and carries within 1e-4 (K1-K3 compute in
+   3xTF32); kernel time (CUDA-graph replay), plain time, ``torch.bmm``
+   over the same products, and the bounds: at the TF32 rate (three TF32
+   products a tile product) with the f32 FFMA bound beside it, each also
+   for one SM a cluster;
 6. K3's own path: the tile-MLP demo program on 132 clusters, one launch,
    then K3 against its plain version at that shape;
 7. mega vs scan: 512 tile ops with chunked reduces through
@@ -220,6 +222,24 @@ def host_ms(fn, iters: int = 20) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
+def kernels_per_call(fn, calls: int = 10):
+    """(device kernels an eager ``fn`` call launches, their names), read
+    from a ``torch.profiler`` pass over ``calls`` calls; (None, []) where
+    the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    if not kernels:
+        return None, []
+    return len(kernels) / calls, sorted({e.name[:60] for e in kernels})
+
+
 def bound(nbytes: float, ops, dtype=None) -> dict:
     """The least time for the work: the larger of its bytes over the HBM
     rate and its operations over the peak rate for its input type. ``ops``
@@ -296,6 +316,10 @@ def decode_case(name, B, S, valid, dtype, gen, window=0, softcap=0.0,
     eager_ms = host_ms(lambda: decode_attention(q, k, v, vl, **kw))
     plain_ms = time_ms(lambda: decode_attention_plain(q, k, v, vl, **kw),
                        iters=5)
+    launches0 = decode_attention.launches
+    per_call, names = kernels_per_call(
+        lambda: decode_attention(q, k, v, vl, **kw))
+    wrapper_per_call = (decode_attention.launches - launches0) / 11
     pos = torch.arange(S, device="cuda")[None, :]
     live = pos < vl[:, None]
     if window:
@@ -310,7 +334,10 @@ def decode_case(name, B, S, valid, dtype, gen, window=0, softcap=0.0,
         vl.numel() * 4
     return dict(kernel="decode_attention", case=name, max_abs_err=err,
                 tol=ATOL[dtype], ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                library_ms=lib_ms, **bound(nbytes, 4.0 * D * Hq * rows, dtype))
+                library_ms=lib_ms, device_kernels_per_call=per_call,
+                device_kernel_names=names,
+                wrapper_launches_per_call=wrapper_per_call,
+                **bound(nbytes, 4.0 * D * Hq * rows, dtype))
 
 
 def kernel_checks() -> dict:
@@ -341,9 +368,18 @@ def kernel_checks() -> dict:
             f"plain_ms={r['plain_ms']:.4f} "
             f"sdpa_ms={lib} bound_ms={r['bound_ms']:.5f} ({r['bound_by']}; "
             f"bytes {r['bytes_ms']:.5f}, ops {r['ops_ms']:.5f})")
+        if r["kernel"] == "decode_attention":
+            log(f"kernels_per_call decode_attention {r['case']}: "
+                f"{r['device_kernels_per_call']} device kernels a call "
+                f"(torch.profiler) {r['device_kernel_names']}, "
+                f"{r['wrapper_launches_per_call']:.0f} wrapper launch a call")
     bad = [r for r in rows if not r["max_abs_err"] <= r["tol"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
+    many = [r for r in rows if r["kernel"] == "decode_attention" and
+            r["device_kernels_per_call"] not in (None, 1.0)]
+    if many:
+        raise SystemExit(f"decode_attention is not one launch a call: {many}")
     # the main path's shapes: a 17-token prompt (serve draws 4..23) and a
     # 4-slot decode over the 128-position cache
     return {"flash_attention": rows[0], "decode_attention": rows[5],
@@ -771,15 +807,15 @@ def _tile_work(name, ctrl, ring, nbuf) -> tuple[float, float, float]:
 
 
 def tile_bound(name, ctrl, ring, nbuf) -> dict:
-    """The launch's bound on the route its kernel takes — K1/K2: three
-    TF32 products a tile product (3xTF32) on the tensor cores, K3: one
-    product in f32 FFMA — with the f32 FFMA bound beside it, and each as
-    one SM a cluster allows: a launch of C < 132 clusters runs on C SMs."""
+    """The launch's bound on the route its kernel takes — three TF32
+    products a tile product (3xTF32) on the tensor cores (K1/K2 by
+    ``mma.sync``, K3 by ``wgmma``) — with the f32 FFMA bound beside it,
+    and each as one SM a cluster allows: a launch of C < 132 clusters
+    runs on C SMs."""
     nbytes, products, f32_ops = _tile_work(name, ctrl, ring, nbuf)
     flop = 2 * PK.TILE**3 * products
     ffma = bound(nbytes, flop + f32_ops, torch.float32)
-    route = ffma if name == "persistent_execute" else bound(
-        nbytes, {"tf32": 3 * flop, torch.float32: f32_ops})
+    route = bound(nbytes, {"tf32": 3 * flop, torch.float32: f32_ops})
     share = N_SMS / min(ring.shape[0], N_SMS)
     return dict(route, ffma_bound_ms=ffma["bound_ms"],
                 sm_bound_ms=max(route["bytes_ms"], route["ops_ms"] * share),
@@ -819,11 +855,10 @@ def log_tile_row(r) -> None:
         f"kernel_ms={r['ms']:.4f} plain_eager_ms={r['plain_ms']:.3f} ")
     if r["library_ms"] is not None:
         t += f"bmm_same_products_no_queue_order_ms={r['library_ms']:.4f} "
-    route = "f32 FFMA" if r["kernel"] == "persistent_execute" else "3xTF32"
     log(f"check {r['kernel']:22s} {r['case']:28s} "
         f"max_abs_err={r['max_abs_err']:.3e} exact_ints_and_tol={r['ok']} "
         f"max|value|={r['scale']:.3g} {t}bound_ms={r['bound_ms']:.5f} "
-        f"({route}, {r['bound_by']}; bytes {r['bytes_ms']:.5f}, ops "
+        f"(3xTF32, {r['bound_by']}; bytes {r['bytes_ms']:.5f}, ops "
         f"{r['ops_ms']:.5f}) one_sm_a_cluster_bound_ms="
         f"{r['sm_bound_ms']:.5f} ffma_bound_ms={r['ffma_bound_ms']:.5f} "
         f"(one SM a cluster {r['sm_ffma_bound_ms']:.5f})")
@@ -1238,6 +1273,14 @@ def main(argv=None) -> int:
             row, launches = checks[name], host[name]
             extra["launches_chunked_prefill"] = chunked[name]
             extra["eager_call_ms"] = row["eager_ms"]
+            if name == "decode_attention":
+                extra["device_kernels_per_call"] = \
+                    row["device_kernels_per_call"]
+                big = checks["cases"][6]
+                extra["at_" + big["case"]] = {
+                    k: big[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms",
+                                        "device_kernels_per_call")}
             if name == "flash_attention":
                 big = checks["s2048"]
                 extra["at_" + big["case"]] = {

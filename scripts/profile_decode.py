@@ -2,7 +2,7 @@
 """Where a full-width decode step of the PyTorch port spends its time.
 
     python3 scripts/profile_decode.py [--arch llama3-8b] [--steps 8]
-                                      [--trace PATH]
+                                      [--trace PATH] [--root DIR]
 
 Serves ``--arch`` (llama3-8b or mamba2-780m) at full width (random
 weights from seed 0) through
@@ -11,7 +11,9 @@ cache, 4 host-prefilled requests. After warm-up it times ``--steps`` decode
 steps on the host clock (each ``engine.step()`` ends with the step's
 readback, so it is synchronized), then records the same number of steps
 with ``torch.profiler`` and prints the device's busy share of the window
-and the kernels by device time. Needs one CUDA device; imports no JAX.
+and the kernels by device time. ``--root`` runs another checkout's
+``src/repro_torch`` (an unpacked earlier commit), so two trees' steps can
+be timed in turns in one call. Needs one CUDA device; imports no JAX.
 """
 from __future__ import annotations
 
@@ -24,13 +26,6 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
-
-from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
-from repro_torch.models import build  # noqa: E402
-from repro_torch.serving import ServingEngine  # noqa: E402
-
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -38,7 +33,21 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--trace", default=None,
                     help="also write a Chrome trace of the profiled steps")
+    ap.add_argument("--root", type=Path,
+                    default=Path(__file__).resolve().parents[1],
+                    help="checkout whose src/repro_torch to run")
     args = ap.parse_args(argv)
+    src = str(args.root.resolve() / "src")
+    sys.path.insert(0, src)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.models import build
+    from repro_torch.serving import ServingEngine
+    if not str(Path(sys.modules["repro_torch"].__file__).resolve()).startswith(
+            src):
+        raise SystemExit(f"imported {sys.modules['repro_torch'].__file__}, "
+                         f"not {src}")
+    print(f"[profile] root={args.root.resolve()}")
     if not torch.cuda.is_available():
         print("profile_decode: needs a CUDA device", file=sys.stderr)
         return 2

@@ -13,26 +13,127 @@
 // What bounds it on the H100: bytes. Each live cache row is used by G query
 // heads for 4*D operations each — far below the ~295 operations per byte at
 // which bf16 work turns operation-bound — so the least time is the live K/V
-// bytes over 3.35 TB/s. What the design does about it: (1) one CTA per
-// (split, kv head, sequence) serves ALL G query heads of that kv head (one
-// warp each), so every K/V row is read from memory once, not G times;
-// (2) rows at or past valid_len, or before the window, are never loaded;
-// (3) the sequence is split across CTAs so that even B*Hkv = 32 fills the
-// 132 SMs, each split writing an f32 partial (max, sumexp, acc) that a second
-// small kernel merges exactly as repro's decode_attention_sharded merges its
-// shards (models/attention.py, the pmax/psum merge).
+// bytes over 3.35 TB/s. At the serve path's shapes (a 128-position cache)
+// the bytes take well under a microsecond, and the launch itself is most of
+// the time. What the design does about it:
+// (1) One launch a call. The n_split CTAs that share a (sequence, kv head)
+//     form a thread-block cluster; each computes the online-softmax partial
+//     (max, sumexp, acc) of its key range for all G query heads of the kv
+//     head (one warp each, so every K/V row is read from memory once, not G
+//     times) and leaves it in its shared memory. After cluster.sync() every
+//     CTA of the cluster merges a slice of the G x D outputs, reading the
+//     partials of all n_split CTAs through distributed shared memory, with
+//     the merge of repro's decode_attention_sharded (models/attention.py, the
+//     pmax/psum merge). No partial goes through global memory, and the
+//     wrapper allocates only the output.
+// (2) Splits follow valid_len on the device. Each CTA derives its key range
+//     from valid_len[b] and the window: the live keys [lo, valid) are cut
+//     into n_split even ranges, so a short sequence's CTAs finish at once
+//     and a long sequence's CTAs share its keys evenly; rows at or past
+//     valid_len, or before the window, are never loaded. The host never
+//     reads valid_len.
+// (3) The cluster size (n_split, chosen by the wrapper: kernel.py
+//     split_count) is at most MAX_CLUSTER = 8, the portable limit. With
+//     llama3-8b's B = 4 sequences x Hkv = 8 kv heads = 32 clusters and a
+//     long cache, 8 splits make 256 CTAs of 128 threads and ~104 KB of
+//     shared memory each: two fit on an SM, so the 132 SMs hold all of them
+//     in one wave, and each cluster (8 CTAs, within one GPC) spreads its
+//     sequence's keys over 8 SMs. A split is given at least 64 positions of
+//     the cache (or window), so the serve path's 128-position cache takes
+//     2 splits: on the card 2 beat 1, 4 and 8 there (PERF.md).
+// (4) K/V tiles stream through a ring of STAGES stages of 16-byte cp.async
+//     copies, one commit group a tile: while one tile is scored and summed,
+//     the next STAGES - 1 tiles' loads are in flight (~64-100 KB a CTA).
+//     Keys past the range's end within its last tile are zero-filled, never
+//     read.
+// (5) The math. bf16 at D = 64 and 128 (the serve path's) runs on the
+//     tensor cores (mma.sync m16n8k16, f32 accumulate): the G query heads
+//     are the 16 rows of the A operand (rows past G zero), each of the
+//     MMA_WARPS warps takes 16 keys of every 64-key tile with its own
+//     online softmax (the warps' partials merged in shared memory into the
+//     CTA's before the cluster merge), K and V fragments
+//     come by ldmatrix (V transposed), and P goes from the score
+//     accumulators to A fragments in registers. So a CTA reads a tile
+//     from shared memory once, where FFMA with one warp a head read it G
+//     times (shared-memory wavefronts, not the FMAs, set that kernel's
+//     pace: scripts/exec_decode_turns.py's no_math variant). f32, and bf16
+//     at D = 256, keep the FFMA kernel: one warp a query head, two or one
+//     keys a lane for Q·Kᵀ, D/32 dims a lane for P·V.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (see repro_torch/kernels/_build.py).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int BK = 64;            // keys per shared-memory tile (2 per lane)
-constexpr int MAX_G = 16;         // query heads per kv head (one warp each)
+constexpr int MAX_G = 16;         // query heads per kv head (one m16 tile; one warp each in FFMA)
+constexpr int MIN_WARPS = 4;      // warps a CTA, at least (extra ones only load)
+constexpr int MAX_CLUSTER = 8;    // CTAs (splits) a cluster: the portable limit
+// bf16 at D = 64 and 128: tensor-core products, 16 keys a warp a tile; rows
+// of K and V padded by 16 bytes (the 8 rows of an ldmatrix read hit
+// distinct banks); as many stages as keep the ring near 100 KB.
+constexpr int MMA_WARPS = 4;
+constexpr int MMA_BK = 16 * MMA_WARPS;
+constexpr int STAGES_MMA_D64 = 4;
+constexpr int STAGES_MMA_D128 = 3;
+// FFMA: keys a tile and ring stages, per element type and head dim: two
+// keys a lane while a cache row is at most 256 bytes, else one; as many
+// stages as keep the ring near 100 KB (two CTAs an SM), at least two.
+constexpr int BK_BF16_D256 = 32;
+constexpr int STAGES_BF16_D256 = 3;
+constexpr int BK_F32_D64 = 64;
+constexpr int STAGES_F32_D64 = 3;
+constexpr int BK_F32_D128 = 32;
+constexpr int STAGES_F32_D128 = 3;
+constexpr int BK_F32_D256 = 32;
+constexpr int STAGES_F32_D256 = 2;
+
+template <int D, typename T> struct Cfg;
+template <> struct Cfg<256, __nv_bfloat16> { static constexpr int BK = BK_BF16_D256, STAGES = STAGES_BF16_D256; };
+template <> struct Cfg<64, float> { static constexpr int BK = BK_F32_D64, STAGES = STAGES_F32_D64; };
+template <> struct Cfg<128, float> { static constexpr int BK = BK_F32_D128, STAGES = STAGES_F32_D128; };
+template <> struct Cfg<256, float> { static constexpr int BK = BK_F32_D256, STAGES = STAGES_F32_D256; };
+
+// The FFMA kernel's shared memory (bytes): the ring's stages, each a K
+// tile with rows padded by 16 bytes (32 lanes reading 32 rows hit distinct
+// banks) and a V tile; then sQ[G][D] f32 (pre-scaled q), sP[G][BK] f32
+// probabilities, and the partial sM[G], sL[G], sAcc[G][D] f32 the cluster
+// merge reads.
+template <int D, typename T>
+struct Layout {
+  static constexpr int BK = Cfg<D, T>::BK;
+  static constexpr int STAGES = Cfg<D, T>::STAGES;
+  static constexpr int VN = 16 / (int)sizeof(T);         // elements a 16-byte vector
+  static constexpr int KSTRIDE = D + VN;                 // padded K row (elements)
+  static constexpr int STAGE_BYTES = BK * (KSTRIDE + D) * (int)sizeof(T);
+  static constexpr int RING_BYTES = STAGES * STAGE_BYTES;
+  static int bytes(int G) { return RING_BYTES + G * (2 * D + BK + 2) * 4; }
+};
+
+// The tensor-core kernel's: the ring's stages (K then V tile, rows of
+// D + 8 bf16); in the same bytes once the ring has drained, the warps'
+// partials sM[W][G], sL[W][G], sAcc[W][G][D] f32 and the CTA's merged
+// one (cM[G], cL[G], cAcc[G][D]).
+template <int D> struct MmaCfg;
+template <> struct MmaCfg<64> { static constexpr int STAGES = STAGES_MMA_D64; };
+template <> struct MmaCfg<128> { static constexpr int STAGES = STAGES_MMA_D128; };
+template <int D>
+struct MmaLayout {
+  static constexpr int STAGES = MmaCfg<D>::STAGES;
+  static constexpr int ST = D + 8;                       // padded row (elements)
+  static constexpr int STAGE_ELEMS = 2 * MMA_BK * ST;
+  static constexpr int RING_BYTES = STAGES * STAGE_ELEMS * 2;
+  static int bytes(int G) {
+    const int part = (MMA_WARPS + 1) * G * (D + 2) * 4;
+    return RING_BYTES > part ? RING_BYTES : part;
+  }
+};
 
 __device__ __forceinline__ void unpack(uint32_t w, float* out, float) {
   out[0] = __uint_as_float(w);
@@ -72,49 +173,155 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162f
 __device__ __forceinline__ void from_float(float x, float* p) { *p = x; }
 __device__ __forceinline__ void from_float(float x, __nv_bfloat16* p) { *p = __float2bfloat16_rn(x); }
 
-// grid (n_split, Hkv, B); 32*G threads: warp g serves query head hk*G + g.
-// Shared memory: sQ[G][D] f32 (pre-scaled q), sK[BK][D + pad] (the pad
-// shifts each row by 16 bytes so 32 lanes reading 32 rows hit distinct
-// banks), sV[BK][D], sP[G][BK] f32 probabilities.
+// 16 bytes global -> shared, asynchronously; src_bytes = 0 fills zeros and
+// reads nothing.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's newest commit groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// This thread's 16-byte copies of the K and V rows of keys [t0, t0 + BK) of
+// (sequence b, kv head hk) into sK and sV (rows of KST and VST elements);
+// keys at or past e are zero-filled.
+template <typename T, int D, int BK, int KST, int VST>
+__device__ __forceinline__ void issue_tile(T* sK, T* sV, const T* k,
+                                           const T* v, int b, int hk, int S,
+                                           int Hkv, int t0, int e) {
+  constexpr int VN = 16 / (int)sizeof(T);
+  constexpr int VPR = D / VN;                 // 16-byte vectors a row
+  for (int idx = threadIdx.x; idx < BK * VPR; idx += blockDim.x) {
+    const int r = idx / VPR;
+    const int c = idx % VPR;
+    const int kp = t0 + r;
+    const int live = kp < e;
+    const size_t off =
+        (((size_t)b * S + (live ? kp : 0)) * Hkv + hk) * D + c * VN;
+    cp_async16(sK + r * KST + c * VN, k + off, live ? 16 : 0);
+    cp_async16(sV + r * VST + c * VN, v + off, live ? 16 : 0);
+  }
+}
+
+// The shard merge of decode_attention_sharded over the partials of a
+// cluster's CTAs, one a CTA (sM[g], sL[g], sAcc[g D + d] in its shared
+// memory; m = -inf for a partial without a live key), each CTA a slice of
+// the G x D outputs: m = max over partials, c = exp(m_p - m) (0 for empty
+// ones), out = sum(c * acc) / max(sum(c * l), 1e-30). Reads the other
+// CTAs' partials through distributed shared memory, every CTA's words of
+// an output issued at once. n <= MAX_CLUSTER: the launch sets no
+// non-portable cluster attribute, so the card refuses a larger cluster.
+template <typename T>
+__device__ void cluster_merge(const cg::cluster_group& cluster,
+                              float* sM, float* sL, float* sAcc, int G, int D,
+                              T* out) {
+  const int n = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  for (int idx = rank * blockDim.x + threadIdx.x; idx < G * D;
+       idx += n * blockDim.x) {
+    const int g = idx / D;
+    float ms[MAX_CLUSTER], ls[MAX_CLUSTER], os[MAX_CLUSTER];
+#pragma unroll
+    for (int r = 0; r < MAX_CLUSTER; ++r) {
+      ms[r] = r < n ? *cluster.map_shared_rank(sM + g, r) : -INFINITY;
+      ls[r] = r < n ? *cluster.map_shared_rank(sL + g, r) : 0.f;
+      os[r] = r < n ? *cluster.map_shared_rank(sAcc + idx, r) : 0.f;
+    }
+    float mg = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < MAX_CLUSTER; ++r) mg = fmaxf(mg, ms[r]);
+    const float m_safe = isfinite(mg) ? mg : 0.f;
+    float lsum = 0.f;
+    float o = 0.f;
+#pragma unroll
+    for (int r = 0; r < MAX_CLUSTER; ++r) {
+      const float c = isfinite(ms[r]) ? expf(ms[r] - m_safe) : 0.f;
+      lsum += c * ls[r];
+      o += c * os[r];
+    }
+    from_float(o / fmaxf(lsum, 1e-30f), out + idx);
+  }
+}
+
+// The key range [a, e) of split `sp` of n_split: the live keys
+// [lo, valid) cut into even ranges (split_ranges in
+// tests/test_torch_kernels_attention.py mirrors it).
+__device__ __forceinline__ void split_range(int valid_len, int S, int window,
+                                            int sp, int n_split, int& a,
+                                            int& e) {
+  const int valid = min(valid_len, S);
+  const int lo = window > 0 ? max(0, valid - window) : 0;
+  const int chunk = (max(valid - lo, 0) + n_split - 1) / n_split;
+  a = lo + sp * chunk;
+  e = min(a + chunk, valid);
+}
+
+// grid (n_split, Hkv, B), clusters of (n_split, 1, 1); 32 * max(G,
+// MIN_WARPS) threads: warp g < G serves query head hk*G + g, every thread
+// issues the ring's copies.
 template <int D, typename T>
 __global__ void __launch_bounds__(32 * MAX_G)
-decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v,
-                      const int* __restrict__ valid_len,
-                      float* __restrict__ part_m, float* __restrict__ part_l,
-                      float* __restrict__ part_acc, int S, int Hq, int Hkv,
-                      int split_len, float softcap, int window, float scale) {
-  constexpr int VN = 16 / (int)sizeof(T);     // elements per 16-byte vector
-  constexpr int KSTRIDE = D + VN;             // padded sK row (elements)
-  constexpr int VPR = D / VN;                 // 16-byte vectors per row
-  constexpr int DL = D / 32;                  // dims per lane in PV
+decode_ffma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const int* __restrict__ valid_len,
+              T* __restrict__ out, int S, int Hq, int Hkv, float softcap,
+              int window, float scale) {
+  using L = Layout<D, T>;
+  constexpr int BK = L::BK;
+  constexpr int STAGES = L::STAGES;
+  constexpr int VN = L::VN;
+  constexpr int KSTRIDE = L::KSTRIDE;
+  constexpr int VPR = D / VN;                 // 16-byte vectors a row of Q·Kᵀ
+  constexpr int DL = D / 32;                  // dims a lane in P·V
+  constexpr int KPL = BK / 32;                // keys a lane in Q·Kᵀ
+  constexpr int STAGE_ELEMS = BK * (KSTRIDE + D);
 
+  cg::cluster_group cluster = cg::this_cluster();
   const int G = Hq / Hkv;
   const int n_split = gridDim.x;
-  const int sp = blockIdx.x;
+  const int sp = static_cast<int>(cluster.block_rank());
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int h = hk * G + warp;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  float* sQ = reinterpret_cast<float*>(smem_raw + L::RING_BYTES);
   float* sP = sQ + G * D;
-  T* sK = reinterpret_cast<T*>(sP + G * BK);
-  T* sV = sK + BK * KSTRIDE;
+  float* sM = sP + G * BK;
+  float* sL = sM + G;
+  float* sAcc = sL + G;
+
+  int a, e;
+  split_range(valid_len[b], S, window, sp, n_split, a, e);
+  const int ntiles = e > a ? (e - a + BK - 1) / BK : 0;
+
+  // this thread's copies of tile j (keys a + j*BK ...) into its stage
+  auto issue = [&](int j) {
+    T* sK = ring + (j % STAGES) * STAGE_ELEMS;
+    issue_tile<T, D, BK, KSTRIDE, D>(sK, sK + BK * KSTRIDE, k, v, b, hk, S,
+                                     Hkv, a + j * BK, e);
+  };
+#pragma unroll
+  for (int j = 0; j < STAGES - 1; ++j) {
+    if (j < ntiles) issue(j);
+    cp_async_commit();
+  }
 
   for (int i = tid; i < G * D; i += nthreads) {
     const int g = i / D, d = i % D;
     sQ[i] = to_float(q[((size_t)b * Hq + hk * G + g) * D + d]) * scale;
   }
-
-  const int valid = min(valid_len[b], S);
-  const int lo = window > 0 ? max(0, valid - window) : 0;
-  const int a = max(sp * split_len, lo);
-  const int e = min(min(sp * split_len + split_len, S), valid);
 
   float m = -INFINITY;
   float l = 0.f;
@@ -122,51 +329,44 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < DL; ++i) acc[i] = 0.f;
 
-  for (int t0 = a; t0 < e; t0 += BK) {
-    __syncthreads();                  // sQ written / previous tile consumed
-    for (int idx = tid; idx < BK * VPR; idx += nthreads) {
-      const int j = idx / VPR;
-      const int c = idx % VPR;
-      const int kp = t0 + j;
-      uint4 kk = make_uint4(0, 0, 0, 0);
-      uint4 vv = make_uint4(0, 0, 0, 0);
-      if (kp < e) {
-        const size_t off = (((size_t)b * S + kp) * Hkv + hk) * D + c * VN;
-        kk = *reinterpret_cast<const uint4*>(k + off);
-        vv = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(sK + j * KSTRIDE + c * VN) = kk;
-      *reinterpret_cast<uint4*>(sV + j * D + c * VN) = vv;
-    }
-    __syncthreads();
+  for (int j = 0; j < ntiles; ++j) {
+    cp_async_wait<STAGES - 2>();      // tile j has landed for this thread
+    __syncthreads();                  // ... for every thread; tile j-1 consumed
+    if (j + STAGES - 1 < ntiles) issue(j + STAGES - 1);
+    cp_async_commit();
+    if (warp >= G) continue;
+    const T* sK = ring + (j % STAGES) * STAGE_ELEMS;
+    const T* sV = sK + BK * KSTRIDE;
+    const int t0 = a + j * BK;
 
-    // scores of this lane's two keys (rows lane, lane + 32) against this
-    // warp's head: one pass over the dims, each q chunk read once
+    // scores of this lane's KPL keys (rows lane + 32 r) against this warp's
+    // head: one pass over the dims, each q chunk read once
     const float* qh = sQ + warp * D;
-    const T* k0p = sK + lane * KSTRIDE;
-    const T* k1p = sK + (lane + 32) * KSTRIDE;
-    float dot0 = 0.f;
-    float dot1 = 0.f;
+    float dot[KPL];
+#pragma unroll
+    for (int r = 0; r < KPL; ++r) dot[r] = 0.f;
 #pragma unroll 2
     for (int c = 0; c < VPR; ++c) {
-      float kf0[VN];
-      float kf1[VN];
-      load_vec<T, VN>(k0p + c * VN, kf0);
-      load_vec<T, VN>(k1p + c * VN, kf1);
+      float kf[KPL][VN];
+#pragma unroll
+      for (int r = 0; r < KPL; ++r)
+        load_vec<T, VN>(sK + (lane + 32 * r) * KSTRIDE + c * VN, kf[r]);
 #pragma unroll
       for (int x = 0; x < VN; ++x) {
         const float qv = qh[c * VN + x];
-        dot0 = fmaf(qv, kf0[x], dot0);
-        dot1 = fmaf(qv, kf1[x], dot1);
+#pragma unroll
+        for (int r = 0; r < KPL; ++r) dot[r] = fmaf(qv, kf[r][x], dot[r]);
       }
     }
-    if (softcap > 0.f) {
-      dot0 = tanhf(dot0 / softcap) * softcap;
-      dot1 = tanhf(dot1 / softcap) * softcap;
+    float s[KPL];
+    float m_blk = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < KPL; ++r) {
+      float x = dot[r];
+      if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+      s[r] = t0 + lane + 32 * r < e ? x : -INFINITY;
+      m_blk = fmaxf(m_blk, s[r]);
     }
-    const bool ok[2] = {t0 + lane < e, t0 + lane + 32 < e};
-    const float s[2] = {ok[0] ? dot0 : -INFINITY, ok[1] ? dot1 : -INFINITY};
-    float m_blk = fmaxf(s[0], s[1]);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       m_blk = fmaxf(m_blk, __shfl_xor_sync(0xffffffffu, m_blk, off));
@@ -174,8 +374,8 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float corr = expf(m - m_new);           // 0 on the first tile
     float psum = 0.f;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float p = ok[r] ? expf(s[r] - m_new) : 0.f;
+    for (int r = 0; r < KPL; ++r) {
+      const float p = t0 + lane + 32 * r < e ? expf(s[r] - m_new) : 0.f;
       sP[warp * BK + lane + 32 * r] = p;
       psum += p;
     }
@@ -187,113 +387,348 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < DL; ++i) acc[i] *= corr;
     const int nk = min(BK, e - t0);
-    for (int j = 0; j < nk; ++j) {
-      const float p = sP[warp * BK + j];
+    for (int jj = 0; jj < nk; ++jj) {
+      const float p = sP[warp * BK + jj];
       float vf[DL];
-      load_vec<T, DL>(sV + j * D + lane * DL, vf);
+      load_vec<T, DL>(sV + jj * D + lane * DL, vf);
 #pragma unroll
       for (int i = 0; i < DL; ++i) acc[i] = fmaf(p, vf[i], acc[i]);
     }
+    __syncwarp();                     // sP read before the next tile writes it
     m = m_new;
   }
+  cp_async_wait<0>();                 // no copy outlives the CTA's ring
 
-  const size_t prow = ((size_t)b * Hq + h) * n_split + sp;
-  if (lane == 0) {
-    part_m[prow] = m;                 // -inf: the split held no live key
-    part_l[prow] = l;
-  }
+  // this CTA's partial: m = -inf where the split held no live key
+  if (warp < G) {
+    if (lane == 0) {
+      sM[warp] = m;
+      sL[warp] = l;
+    }
 #pragma unroll
-  for (int i = 0; i < DL; ++i) part_acc[prow * D + lane * DL + i] = acc[i];
-}
-
-// grid (Hq, B); D threads. The shard merge of decode_attention_sharded:
-// m = max over splits, corr = exp(m_split - m) (0 for empty splits),
-// out = sum(corr * acc) / max(sum(corr * l), 1e-30).
-template <typename T>
-__global__ void decode_merge_kernel(const float* __restrict__ part_m,
-                                    const float* __restrict__ part_l,
-                                    const float* __restrict__ part_acc,
-                                    T* __restrict__ out, int Hq, int D,
-                                    int n_split) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int d = threadIdx.x;
-  const size_t base = ((size_t)b * Hq + h) * n_split;
-  float mg = -INFINITY;
-  for (int s = 0; s < n_split; ++s) mg = fmaxf(mg, part_m[base + s]);
-  const float m_safe = isfinite(mg) ? mg : 0.f;
-  float lsum = 0.f;
-  float o = 0.f;
-  for (int s = 0; s < n_split; ++s) {
-    const float ms = part_m[base + s];
-    const float c = isfinite(ms) ? expf(ms - m_safe) : 0.f;
-    lsum += c * part_l[base + s];
-    o += c * part_acc[(base + s) * D + d];
+    for (int i = 0; i < DL; ++i) sAcc[warp * D + lane * DL + i] = acc[i];
   }
-  from_float(o / fmaxf(lsum, 1e-30f), out + ((size_t)b * Hq + h) * D + d);
+  cluster.sync();                     // every partial of the cluster written
+  cluster_merge<T>(cluster, sM, sL, sAcc, G, D,
+                   out + ((size_t)b * Hq + hk * G) * D);
+  cluster.sync();                     // no CTA leaves while others read it
 }
 
-template <int D, typename T>
-int launch(const void* q, const void* k, const void* v, const int* valid_len,
-           float* part_m, float* part_l, float* part_acc, void* out, int B,
-           int S, int Hq, int Hkv, int n_split, int split_len, float softcap,
-           int window, float scale, cudaStream_t stream) {
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+// d += a * b: m16n8k16, bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const uint32_t x = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
+  const uint32_t y = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
+  return x | (y << 16);
+}
+
+// bf16, D in {64, 128}. grid (n_split, Hkv, B), clusters of (n_split, 1,
+// 1); MMA_WARPS warps. Lane (g, t) = (lane / 4, lane % 4) holds, in every
+// m16n8 accumulator, rows (query heads) g and g + 8 and columns 2t, 2t + 1
+// (keys of S, dims of O). Warp w takes keys 16 w ... 16 w + 15 of each tile:
+// S = Q·Kᵀ as two n8 tiles, the online softmax over its 16 keys (its own m
+// and l per head), O += P·V with P from S's accumulators, V by
+// ldmatrix.trans. The warps' partials are merged in shared memory into
+// the CTA's, which joins the cluster merge.
+template <int D>
+__global__ void __launch_bounds__(32 * MMA_WARPS)
+decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  const int* __restrict__ valid_len,
+                  __nv_bfloat16* __restrict__ out, int S, int Hq, int Hkv,
+                  float softcap, int window, float scale) {
+  using L = MmaLayout<D>;
+  using T = __nv_bfloat16;
+  constexpr int STAGES = L::STAGES;
+  constexpr int ST = L::ST;
+  constexpr int KSTEPS = D / 16;              // k16 steps of Q·Kᵀ
+  constexpr int NT = D / 8;                   // n8 tiles of O
+
+  cg::cluster_group cluster = cg::this_cluster();
   const int G = Hq / Hkv;
-  constexpr int VN = 16 / (int)sizeof(T);
-  const int smem = (G * D + G * BK) * (int)sizeof(float) +
-                   BK * (D + VN) * (int)sizeof(T) + BK * D * (int)sizeof(T);
-  auto kern = decode_partial_kernel<D, T>;
+  const int n_split = gridDim.x;
+  const int sp = static_cast<int>(cluster.block_rank());
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+
+  int a, e;
+  split_range(valid_len[b], S, window, sp, n_split, a, e);
+  const int ntiles = e > a ? (e - a + MMA_BK - 1) / MMA_BK : 0;
+  auto issue = [&](int j) {
+    T* sK = ring + (j % STAGES) * L::STAGE_ELEMS;
+    issue_tile<T, D, MMA_BK, ST, ST>(sK, sK + MMA_BK * ST, k, v, b, hk, S,
+                                     Hkv, a + j * MMA_BK, e);
+  };
+#pragma unroll
+  for (int j = 0; j < STAGES - 1; ++j) {
+    if (j < ntiles) issue(j);
+    cp_async_commit();
+  }
+
+  // Q as A fragments (rows = this kv head's query heads, zero past G)
+  const T* qh = q + ((size_t)b * Hq + hk * G) * D;
+  uint32_t qf[KSTEPS][4];
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ++ks)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = g + 8 * (r & 1);
+      const int col = ks * 16 + 2 * t + 8 * (r >> 1);
+      qf[ks][r] = row < G
+          ? *reinterpret_cast<const uint32_t*>(qh + (size_t)row * D + col)
+          : 0u;
+    }
+
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};                    // this thread's columns only
+  float acc[NT][4];
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[i][r] = 0.f;
+  const int key0 = 16 * warp;                 // this warp's keys in a tile
+  const int kr = ((lane >> 4) & 1) * 8 + (lane & 7);   // ldmatrix rows
+  const int kc = ((lane >> 3) & 1) * 8;
+  const int vr = ((lane >> 3) & 1) * 8 + (lane & 7);
+  const int vc = (lane >> 4) * 8;
+
+  for (int j = 0; j < ntiles; ++j) {
+    cp_async_wait<STAGES - 2>();      // tile j has landed for this thread
+    __syncthreads();                  // ... for every thread; tile j-1 consumed
+    if (j + STAGES - 1 < ntiles) issue(j + STAGES - 1);
+    cp_async_commit();
+    const T* sK = ring + (j % STAGES) * L::STAGE_ELEMS;
+    const T* sV = sK + MMA_BK * ST;
+
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      uint32_t kb[4];
+      ldmatrix_x4(kb, sK + (key0 + kr) * ST + ks * 16 + kc);
+      mma_bf16(s[0], qf[ks], kb[0], kb[1]);
+      mma_bf16(s[1], qf[ks], kb[2], kb[3]);
+    }
+    const int t0 = a + j * MMA_BK + key0;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float x = s[nt][r] * scale;
+        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+        x = t0 + 8 * nt + 2 * t + (r & 1) < e ? x : -INFINITY;
+        s[nt][r] = x;
+        mx[r >> 1] = fmaxf(mx[r >> 1], x);
+      }
+    float m_use[2], corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      // no live key yet: every weight so far and now is 0
+      m_use[h] = m_new == -INFINITY ? 0.f : m_new;
+      corr[h] = expf(m[h] - m_use[h]);
+      m[h] = m_new;
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float pr = expf(s[nt][r] - m_use[r >> 1]);
+        s[nt][r] = pr;
+        l[r >> 1] += pr;
+      }
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][r] *= corr[r >> 1];
+    // P (rows g, g + 8; keys 2t, 2t + 1 and 8 + 2t, 9 + 2t) as an A fragment
+    const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]),
+                            pack_bf16(s[0][2], s[0][3]),
+                            pack_bf16(s[1][0], s[1][1]),
+                            pack_bf16(s[1][2], s[1][3])};
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t vb[4];
+      ldmatrix_x4_trans(vb, sV + (key0 + vr) * ST + np * 16 + vc);
+      mma_bf16(acc[2 * np], pa, vb[0], vb[1]);
+      mma_bf16(acc[2 * np + 1], pa, vb[2], vb[3]);
+    }
+  }
+  cp_async_wait<0>();                 // no copy outlives the ring
+  __syncthreads();                    // every warp done with it: reuse it
+
+  // this warp's partial (its rows g, g + 8 below G); l summed over the quad
+  float* sM = reinterpret_cast<float*>(smem_raw);
+  float* sL = sM + MMA_WARPS * G;
+  float* sAcc = sL + MMA_WARPS * G;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int row = g + 8 * h;
+    if (row < G) {
+      if (t == 0) {
+        sM[warp * G + row] = m[h];
+        sL[warp * G + row] = l[h];
+      }
+      float* o = sAcc + (size_t)(warp * G + row) * D + 2 * t;
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        o[8 * i] = acc[i][2 * h];
+        o[8 * i + 1] = acc[i][2 * h + 1];
+      }
+    }
+  }
+  __syncthreads();
+  // the CTA's partial: the warps' merged as the cluster merges CTAs'
+  float* cM = sAcc + MMA_WARPS * G * D;
+  float* cL = cM + G;
+  float* cAcc = cL + G;
+  for (int idx = threadIdx.x; idx < G * D; idx += blockDim.x) {
+    const int row = idx / D;
+    float mw[MMA_WARPS];
+    float mg = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < MMA_WARPS; ++w) {
+      mw[w] = sM[w * G + row];
+      mg = fmaxf(mg, mw[w]);
+    }
+    const float m_safe = isfinite(mg) ? mg : 0.f;
+    float lsum = 0.f;
+    float o = 0.f;
+#pragma unroll
+    for (int w = 0; w < MMA_WARPS; ++w) {
+      const float c = isfinite(mw[w]) ? expf(mw[w] - m_safe) : 0.f;
+      lsum += c * sL[w * G + row];
+      o += c * sAcc[(size_t)(w * G + row) * D + idx % D];
+    }
+    cAcc[idx] = o;
+    if (idx % D == 0) {
+      cM[row] = mg;
+      cL[row] = lsum;
+    }
+  }
+  cluster.sync();                     // every partial of the cluster written
+  cluster_merge<T>(cluster, cM, cL, cAcc, G, D,
+                   out + ((size_t)b * Hq + hk * G) * D);
+  cluster.sync();                     // no CTA leaves while others read it
+}
+
+// One launch of `kern` on grid (n_split, Hkv, B) in clusters of n_split.
+template <typename... P, typename... A>
+int cluster_launch(void (*kern)(P...), int n_split, int Hkv, int B,
+                   int threads, int smem, cudaStream_t stream, A... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<dim3(n_split, Hkv, B), 32 * G, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), valid_len, part_m, part_l, part_acc, S, Hq,
-      Hkv, split_len, softcap, window, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  decode_merge_kernel<T><<<dim3(Hq, B), D, 0, stream>>>(
-      part_m, part_l, part_acc, static_cast<T*>(out), Hq, D, n_split);
+  if (err != cudaSuccess) {
+    cudaGetLastError();     // reported here; the next launch must not see it
+    return (int)err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_split, Hkv, B);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v,
-             const int* valid_len, float* pm, float* pl, float* pa, void* out,
-             int B, int S, int Hq, int Hkv, int n_split, int split_len,
-             float softcap, int window, float scale, cudaStream_t st) {
-  switch (D) {
-    case 64: return launch<64, T>(q, k, v, valid_len, pm, pl, pa, out, B, S, Hq, Hkv, n_split, split_len, softcap, window, scale, st);
-    case 128: return launch<128, T>(q, k, v, valid_len, pm, pl, pa, out, B, S, Hq, Hkv, n_split, split_len, softcap, window, scale, st);
-    case 256: return launch<256, T>(q, k, v, valid_len, pm, pl, pa, out, B, S, Hq, Hkv, n_split, split_len, softcap, window, scale, st);
-    default: return -1;
-  }
+template <int D, typename T>
+int launch_ffma(const void* q, const void* k, const void* v,
+                const int* valid_len, void* out, int B, int S, int Hq,
+                int Hkv, int n_split, float softcap, int window, float scale,
+                cudaStream_t stream) {
+  const int G = Hq / Hkv;
+  return cluster_launch(decode_ffma_kernel<D, T>, n_split, Hkv, B,
+                        32 * (G > MIN_WARPS ? G : MIN_WARPS),
+                        Layout<D, T>::bytes(G), stream,
+                        static_cast<const T*>(q), static_cast<const T*>(k),
+                        static_cast<const T*>(v), valid_len,
+                        static_cast<T*>(out), S, Hq, Hkv, softcap, window,
+                        scale);
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v,
+               const int* valid_len, void* out, int B, int S, int Hq,
+               int Hkv, int n_split, float softcap, int window, float scale,
+               cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  return cluster_launch(decode_mma_kernel<D>, n_split, Hkv, B,
+                        32 * MMA_WARPS, MmaLayout<D>::bytes(Hq / Hkv),
+                        stream, static_cast<const T*>(q),
+                        static_cast<const T*>(k), static_cast<const T*>(v),
+                        valid_len, static_cast<T*>(out), S, Hq, Hkv, softcap,
+                        window, scale);
 }
 
 }  // namespace
 
-// Returns 0, a cudaError_t code, -1 for an unsupported head dim, or -2 for
-// an unsupported group size (Hq/Hkv must be in [1, 16]).
+// One launch: q (B,1,Hq,D), caches (B,S,Hkv,D), valid_len (B,) i32 ->
+// out (B,1,Hq,D), n_split CTAs (one cluster) a (sequence, kv head).
+// Returns 0, a cudaError_t code (the attribute call's or the launch's: a
+// cluster the card refuses), -1 for an unsupported head dim, or -2 for an
+// unsupported group size (Hq/Hkv must be in [1, 16]).
 extern "C" int k4_decode_attention(const void* q, const void* k,
                                    const void* v, const void* valid_len,
-                                   void* part_m, void* part_l, void* part_acc,
                                    void* out, int B, int S, int Hq, int Hkv,
                                    int D, int is_bf16, int n_split,
-                                   int split_len, float softcap, int window,
-                                   float scale, void* stream) {
+                                   float softcap, int window, float scale,
+                                   void* stream) {
   const int G = Hq / Hkv;
   if (G < 1 || G > MAX_G || G * Hkv != Hq) return -2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* vl = static_cast<const int*>(valid_len);
-  float* pm = static_cast<float*>(part_m);
-  float* pl = static_cast<float*>(part_l);
-  float* pa = static_cast<float*>(part_acc);
-  if (is_bf16)
-    return launch_d<__nv_bfloat16>(D, q, k, v, vl, pm, pl, pa, out, B, S, Hq,
-                                   Hkv, n_split, split_len, softcap, window,
-                                   scale, st);
-  return launch_d<float>(D, q, k, v, vl, pm, pl, pa, out, B, S, Hq, Hkv,
-                         n_split, split_len, softcap, window, scale, st);
+  using bf16 = __nv_bfloat16;
+  switch (is_bf16 ? D : -D) {
+    case 64: return launch_mma<64>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, st);
+    case 128: return launch_mma<128>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, st);
+    case 256: return launch_ffma<256, bf16>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, st);
+    case -64: return launch_ffma<64, float>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, st);
+    case -128: return launch_ffma<128, float>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, st);
+    case -256: return launch_ffma<256, float>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, st);
+    default: return -1;
+  }
 }
 
 extern "C" const char* k4_error_string(int err) {

@@ -2,10 +2,14 @@
 and its plain PyTorch version.
 
 Port of ``repro.kernels.decode_attention`` (``_decode_kernel`` /
-``decode_attention_pallas``). ``decode_attention`` launches the CUDA
-kernels in ``csrc/decode_attention.cu`` (split partials + merge) for CUDA
-tensors and uses ``decode_attention_plain`` for CPU tensors — the only
-case in which it does. On a CUDA tensor it launches the kernel or raises.
+``decode_attention_pallas``). ``decode_attention`` launches the CUDA kernel
+in ``csrc/decode_attention.cu`` for CUDA tensors — one launch a call: a
+cluster of ``split_count`` CTAs a (sequence, kv head), each over the key
+range of the live keys it derives from ``valid_len`` on the device (bf16
+at D = 64 and 128 on the tensor cores, f32 and D = 256 in FFMA), merged
+through distributed shared memory — and uses ``decode_attention_plain`` for
+CPU tensors, the only case in which it does. On a CUDA tensor it launches
+the kernel or raises.
 """
 from __future__ import annotations
 
@@ -20,8 +24,9 @@ from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 HEAD_DIMS = (64, 128, 256)
-MAX_GROUP = 16        # query heads per kv head the kernel serves (one warp each)
-KEY_TILE = 64         # keys per shared-memory tile; splits are multiples
+MAX_GROUP = 16        # query heads per kv head the kernel serves (one m16 tile)
+MAX_CLUSTER = 8       # CTAs a cluster (splits a (sequence, kv head)): portable
+SPLIT_MIN_KEYS = 64   # cache positions a split, at least
 TARGET_CTAS = 264     # two CTAs per SM of the H100's 132
 NEG_INF = -1e30
 
@@ -35,8 +40,7 @@ def library() -> ctypes.CDLL:
         lib = _build.load(SOURCE)
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.k4_decode_attention.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
-            cf, ci, cf, vp]
+            vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf, ci, cf, vp]
         lib.k4_decode_attention.restype = ci
         lib.k4_error_string.argtypes = [ci]
         lib.k4_error_string.restype = ctypes.c_char_p
@@ -69,13 +73,14 @@ def decode_attention_plain(q, k_cache, v_cache, valid_len, *,
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
 
 
-def split_plan(B: int, S: int, Hkv: int) -> tuple[int, int]:
-    """(n_split, split_len): split the cache so B*Hkv*n_split CTAs come
-    near ``TARGET_CTAS``, each split a whole number of key tiles."""
-    tiles = -(-S // KEY_TILE)
-    n_split = max(1, min(tiles, -(-TARGET_CTAS // (B * Hkv))))
-    split_len = -(-tiles // n_split) * KEY_TILE
-    return -(-S // split_len), split_len
+def split_count(B: int, S: int, Hkv: int, window: int = 0) -> int:
+    """Splits (CTAs of one cluster) a (sequence, kv head): enough that the
+    B*Hkv clusters come near ``TARGET_CTAS`` CTAs, at most ``MAX_CLUSTER``,
+    and no more than the live keys a sequence can have (S, or the window
+    when it is shorter) give ``SPLIT_MIN_KEYS`` each."""
+    live = min(S, window) if window > 0 else S
+    return max(1, min(MAX_CLUSTER, -(-TARGET_CTAS // (B * Hkv)),
+                      -(-live // SPLIT_MIN_KEYS)))
 
 
 def _check(q, k, v, valid_len) -> None:
@@ -115,9 +120,9 @@ def _check(q, k, v, valid_len) -> None:
 def decode_attention(q, k_cache, v_cache, valid_len, *,
                      attn_softcap: float = 0.0, window: int = 0):
     """q: (B,1,Hq,D); caches: (B,S,Hkv,D); valid_len: (B,) int32, >= 1 ->
-    (B,1,Hq,D). CUDA tensors launch the Hopper kernels on the current
-    stream (no synchronization); CPU tensors take the plain version.
-    ``decode_attention.launches`` counts kernel launches."""
+    (B,1,Hq,D). CUDA tensors launch the Hopper kernel on the current
+    stream (one launch, no synchronization, no scratch); CPU tensors take
+    the plain version. ``decode_attention.launches`` counts launches."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, valid_len,
                                       attn_softcap=attn_softcap,
@@ -125,26 +130,17 @@ def decode_attention(q, k_cache, v_cache, valid_len, *,
     _check(q, k_cache, v_cache, valid_len)
     B, S, Hkv, D = k_cache.shape
     Hq = q.shape[2]
-    n_split, split_len = split_plan(B, S, Hkv)
-    # scratch for the split partials; freeing it at return is safe while
-    # the kernels still run: the caching allocator hands the memory only to
-    # work ordered after them on this stream
-    f32 = dict(dtype=torch.float32, device=q.device)
-    part_m = torch.empty((B, Hq, n_split), **f32)
-    part_l = torch.empty((B, Hq, n_split), **f32)
-    part_acc = torch.empty((B, Hq, n_split, D), **f32)
+    window = int(window or 0)
     out = torch.empty_like(q)
-    lib = library()
-    err = lib.k4_decode_attention(
+    err = library().k4_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        valid_len.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-        part_acc.data_ptr(), out.data_ptr(), B, S, Hq, Hkv, D,
-        int(q.dtype == torch.bfloat16), n_split, split_len,
-        float(attn_softcap or 0.0), int(window or 0), 1.0 / math.sqrt(D),
+        valid_len.data_ptr(), out.data_ptr(), B, S, Hq, Hkv, D,
+        int(q.dtype == torch.bfloat16), split_count(B, S, Hkv, window),
+        float(attn_softcap or 0.0), window, 1.0 / math.sqrt(D),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         msg = {-1: "unsupported head dim", -2: "unsupported group size"}.get(
-            err) or lib.k4_error_string(err).decode()
+            err) or library().k4_error_string(err).decode()
         raise RuntimeError(f"decode_attention kernel launch failed: {msg}")
     decode_attention.launches += 1
     return out

@@ -73,12 +73,18 @@
 // registers, 72 and 80 bytes of spill stores, 64 bytes of static shared
 // memory plus DRAIN_SMEM_BYTES = 215040 dynamic.
 //
-// K3 keeps the FFMA tile product of the first port (8 x 8 outputs a
-// thread, k-blocks staged synchronously in static shared memory), bound by
-// the f32 rate.
+// K3 forms its tile products in 3xTF32 too, on wgmma (m64n128k8, two
+// consumer warpgroups) with a producer warp streaming k-blocks by TMA and
+// cp.async.bulk: the design is described above execute_kernel. Its tile
+// product is a set of device functions (exec_split, exec_products,
+// exec_matmul_row) that take the ring's state as arguments, so the drain
+// kernels could call them; K1/K2 keep their mma.sync product for now.
+// Its ptxas report is in PERF.md. Elementwise rows compute no tile sum
+// (K3 has no result words). K3 is bound like K1/K2: by the TF32 rate.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (see repro_torch/kernels/_build.py).
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -125,17 +131,6 @@ static_assert(OP_COPY == OP_RELU + 1 && OP_REDUCE == OP_COPY + 1,
               "tile_op writes every opcode from MATMUL to COPY");
 
 constexpr int TT = TILE * TILE;
-
-// K3: 256 threads, 16 x 16, 8x8 outputs each, FFMA
-constexpr int NT = 256;
-constexpr int KB = 32;              // k-block of a tile product
-constexpr int LDA = TILE + 1;       // padded row of the transposed A block
-
-struct Smem {
-  float a[KB * LDA];                // A[:, k0:k0+KB] transposed: a[k][m]
-  alignas(16) float b[KB * TILE];   // B[k0:k0+KB, :]
-  float red[NT / 32];
-};
 
 // K1/K2: a warp grid over the 128 x 128 product; warp (wm, wn) owns rows
 // 16 WARP_MT wm + [0, 16 WARP_MT) and columns 8 WARP_NT wn + [0, 8 WARP_NT)
@@ -195,46 +190,6 @@ __device__ float block_sum(float v, float* red) {
   return s;
 }
 
-// acc[i][j] = sum_k A[ty + 16 i][k] * B[k][tx + 16 j] in f32 FFMA, k in
-// order. Ends with __syncthreads(): every read of A and B is done.
-__device__ void tile_product(const float* A, const float* B,
-                             float (&acc)[8][8], Smem& sm) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < TILE; k0 += KB) {
-#pragma unroll
-    for (int r = 0; r < KB * TILE / 4 / NT; ++r) {
-      const int f = threadIdx.x + NT * r;        // float4 of the A block
-      const int m = f / (KB / 4), kq = (f % (KB / 4)) * 4;
-      const float4 v = *reinterpret_cast<const float4*>(A + m * TILE + k0 + kq);
-      sm.a[(kq + 0) * LDA + m] = v.x;
-      sm.a[(kq + 1) * LDA + m] = v.y;
-      sm.a[(kq + 2) * LDA + m] = v.z;
-      sm.a[(kq + 3) * LDA + m] = v.w;
-      const int kk = f / (TILE / 4), nq = (f % (TILE / 4)) * 4;
-      *reinterpret_cast<float4*>(sm.b + kk * TILE + nq) =
-          *reinterpret_cast<const float4*>(B + (k0 + kk) * TILE + nq);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < KB; ++kk) {
-      float av[8], bv[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) av[i] = sm.a[kk * LDA + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) bv[j] = sm.b[kk * TILE + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
 // This thread's part of an elementwise row (ADD, SCALE, RELU, COPY) or of
 // REDUCE's sum(ws[a]) on a CTA of THREADS threads: the sum of the elements
 // it wrote (read, for REDUCE).
@@ -262,34 +217,6 @@ __device__ float elementwise_part(int op, float* ws, int dst, int a, int arg1,
     part += (x.x + x.y) + (x.z + x.w);
   }
   return part;
-}
-
-// K3's tile op (op already clipped, indices already in range) on one
-// cluster's workspace. Returns the sum of the tile written — or, for
-// REDUCE, sum(ws[a]) — valid on thread 0 only. Every thread calls it with
-// the same arguments (the row's branch is uniform over the CTA).
-__device__ float tile_op(int op, float* ws, int dst, int a, int arg1,
-                         int nbuf, Smem& sm) {
-  float part = 0.f;
-  if (op == OP_MATMUL) {
-    float acc[8][8];
-    tile_product(ws + (size_t)a * TT, ws + (size_t)tile_index(arg1, nbuf) * TT,
-                 acc, sm);
-    float* D = ws + (size_t)dst * TT;
-    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int e = (ty + 16 * i) * TILE + tx + 16 * j;
-        const float v = D[e] + acc[i][j];
-        D[e] = v;
-        part += v;
-      }
-  } else {
-    part = elementwise_part<NT>(op, ws, dst, a, arg1, nbuf);
-  }
-  return block_sum<NT / 32>(part, sm.red);
 }
 
 // ---- K1/K2's tile product: 3xTF32 mma.sync fed by the cp.async ring ----
@@ -677,30 +604,586 @@ drain_kernel(const int* ctrl, const int* queue, float* ws, float* carry,
   }
 }
 
-__global__ void __launch_bounds__(NT)
-execute_kernel(const int* queue, float* ws, int* fromgpu, int Q, int nbuf) {
-  __shared__ Smem sm;
-  const int c = blockIdx.x;
-  float* wsc = ws + (size_t)c * nbuf * TT;
-  int done = 0;
-  for (int i = 0; i < Q; ++i) {
-    const int* d = queue + ((size_t)c * Q + i) * DESC_WIDTH;
-    if (d[W_STATUS] < THREAD_WORK) continue;       // uniform over the CTA
-    ++done;
-    const int op = min(max(d[W_OPCODE], 0), NUM_OPS - 1);
-    if (op != 0) {
-      const int arg0 = d[W_ARG0];
-      tile_op(op, wsc, tile_index(arg0 >> 8, nbuf),
-              tile_index(arg0 & 255, nbuf), d[W_ARG1], nbuf, sm);
+// ---- K3's tile product: 3xTF32 on wgmma, fed by a producer warp ----------
+//
+// A CTA of EXEC_THREADS threads: two consumer warpgroups, each owning 64
+// rows of the 128 x 128 product (wgmma m64n128k8, tf32 in, f32 out), and a
+// producer warp. The producer walks the queue ahead of the consumers and
+// streams every MATMUL row's operands as 32-deep k-blocks into a ring of
+// EXEC_STAGES raw stages, two copies a k-block: A's 128 rows x 128 bytes as
+// one TMA box of a 2-D tensor map over the whole workspace (landing in the
+// 128-byte swizzle), B's 32 rows x 512 bytes, contiguous, as one 16 KB
+// cp.async.bulk: two requests a k-block, where a first draft issued 129
+// (A's rows as 128-byte bulk copies). Each stage is guarded by a full
+// mbarrier (the copies' byte count) and an empty one (the consumers'
+// release). tf32 wgmma reads its operands K-major, B from shared memory,
+// A from shared memory or registers; here both come from shared memory.
+// The consumers split each landed k-block into tf32 big and small halves
+// and write them in the 128-byte-swizzled K-major layout wgmma's
+// descriptors read: A at the offsets it landed at ([m][k], 128 bytes a
+// row: one swizzle row), B transposed to [n][k]. The split of k-block
+// kb + 1 runs while k-block kb's products are on the tensor cores, into
+// the other of two split buffers. Each 8-deep step issues three products,
+// small·big, big·small, big·big (small·small dropped, ~2^-22 relative). A
+// from registers (no A split in shared memory) was tried: a 288-thread
+// CTA gets at most 168 registers a thread, and two 64-register
+// accumulators plus 48 of A fragments spilled and serialized the products
+// (1.14 against 0.85 ms at C = 132; with a producer warpgroup and
+// setmaxnreg ptxas still allocated 168 and spilled: 0.93; PERF.md).
+//
+// A row's operands are loaded under the previous row's math unless that
+// row writes one of them (the rule K1/K2 use): the producer may issue row
+// i's copies once every work row before the previous one is done, and,
+// when the previous row writes a or b, once that row is done too (the
+// consumers publish a count of done rows in shared memory; their global
+// writes go through a proxy fence first, since the bulk copies read
+// through the async proxy). When the next work row is a MATMUL the
+// producer may load under this one, the consumers split its first k-block
+// under this row's last products. D + acc is written only after every
+// k-block of A and B has landed, so dst may alias a or b.
+
+constexpr int EXEC_CONSUMERS = 2;      // warpgroups, 64 rows of the product each
+constexpr int EXEC_CONSUMER_THREADS = 128 * EXEC_CONSUMERS;
+constexpr int EXEC_THREADS = EXEC_CONSUMER_THREADS + 32;   // + the producer warp
+constexpr int EXEC_KB = 32;            // k-block: 32 f32 = one 128-byte swizzle row
+constexpr int EXEC_STAGES = 2;         // raw k-blocks in flight
+constexpr int EXEC_FRESH_K = 32;       // depth summed in one fresh accumulator
+constexpr int EXEC_KBLOCK_BYTES = TILE * EXEC_KB * 4;   // a k-block of A (or B)
+constexpr int EXEC_RAW_BYTES = 2 * EXEC_KBLOCK_BYTES;   // A and B as they land
+constexpr int EXEC_SPLIT_BYTES = 4 * EXEC_KBLOCK_BYTES; // big, small of A and Bᵀ
+constexpr int EXEC_SMEM_ALIGN = 1024;  // the 128-byte swizzle repeats every 8 rows
+constexpr int EXEC_BAR_BYTES = 64;     // 2 x EXEC_STAGES mbarriers, the done count
+constexpr int EXEC_SMEM_BYTES =
+    EXEC_SMEM_ALIGN + EXEC_STAGES * EXEC_RAW_BYTES + 2 * EXEC_SPLIT_BYTES + EXEC_BAR_BYTES;
+constexpr int EXEC_GROUPS = EXEC_KB / EXEC_FRESH_K;   // fresh accumulators a k-block
+constexpr int EXEC_UNITS = 2 * TILE * EXEC_KB / 4 / EXEC_CONSUMER_THREADS;
+static_assert(EXEC_KB * 4 == 128 && TILE % EXEC_KB == 0, "one swizzle row a k-block row");
+static_assert(EXEC_GROUPS * EXEC_FRESH_K == EXEC_KB && EXEC_FRESH_K % 8 == 0,
+              "fresh accumulators cover whole 8-deep steps of a k-block");
+static_assert(EXEC_UNITS % (2 * EXEC_GROUPS) == 0, "the split spreads over the groups");
+static_assert(2 * EXEC_STAGES * 8 + 4 <= EXEC_BAR_BYTES, "barriers fit");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// Returns once the phase of parity `parity` has completed. A wait that
+// outlasts ~2^30 polls (seconds) traps: a lost arrival or copy then fails
+// the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  uint32_t polls = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (++polls == (1u << 30)) __trap();
+  } while (!done);
+}
+
+// one box of the 2-D tensor map (columns, rows) into shared memory, counted
+// on `bar`
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
+      : "memory");
+}
+
+// `bytes` contiguous bytes global -> shared through the async proxy,
+// counted on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(EXEC_CONSUMER_THREADS) : "memory");
+}
+// consumers_sync that also returns whether any consumer passed `pred`
+__device__ __forceinline__ bool consumers_sync_or(bool pred) {
+  uint32_t r;
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.u32 q, %1, 0;\n"
+      "bar.red.or.pred p, 1, %2, q;\nselp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(r) : "r"((uint32_t)pred), "n"(EXEC_CONSUMER_THREADS)
+      : "memory");
+  return r != 0;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving reads or writes of the accumulator
+// registers across the asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of a K-major operand in the 128-byte
+// swizzle: start address, stride of 1024 bytes between groups of 8 rows
+// (both in 16-byte units), layout type 1 (B128)
+__device__ __forceinline__ uint64_t kmajor_sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+// d (+)= a * b: m64n128k8, tf32 in from shared memory (both K-major), f32
+// accumulate; scale_d = 0 starts from 0
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// Byte offset of 16-byte chunk c (0..7) of row r in a 128-row operand tile
+// of 128-byte rows in the 128-byte swizzle (chunk index XOR row % 8)
+__device__ __forceinline__ uint32_t sw128_offset(int r, int c) {
+  return (r >> 3) * 1024 + (r & 7) * 128 + ((c ^ (r & 7)) << 4);
+}
+
+// Part `part` of PARTS of this consumer thread's share of splitting a
+// landed k-block (raw: A [m][k], rows of 128 bytes in the 128-byte swizzle;
+// then B [k][n], rows of 512 bytes) into `split`: A's big and small halves, then Bᵀ's ([n][k]),
+// each in the swizzled K-major layout. Returns whether this thread met a
+// big that is not finite. A: lanes take neighbouring 16-byte chunks of a
+// row; B: lanes take neighbouring columns n, read one float of 4
+// consecutive k rows and write one chunk of row n (8 lanes, 8 distinct
+// swizzled chunks: no bank conflict).
+template <int PARTS>
+__device__ __forceinline__ bool exec_split(const unsigned char* raw,
+                                           unsigned char* split, int part) {
+  constexpr int PER = EXEC_UNITS / PARTS;
+  bool nonfinite = false;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int u = part * PER + i;
+    const int f = threadIdx.x + EXEC_CONSUMER_THREADS * (u % (EXEC_UNITS / 2));
+    float4 x;
+    uint32_t off;
+    unsigned char* dst = split;
+    if (u < EXEC_UNITS / 2) {            // A: row m = f / 8, chunk c = f % 8
+      off = sw128_offset(f >> 3, f & 7);
+      x = *reinterpret_cast<const float4*>(raw + off);
+    } else {                             // Bᵀ: row n = f % 128, chunk c = f / 128
+      const int n = f & (TILE - 1), c = f >> 7;
+      const float* rb = reinterpret_cast<const float*>(
+          raw + EXEC_KBLOCK_BYTES) + 4 * c * TILE + n;
+      x = make_float4(rb[0], rb[TILE], rb[2 * TILE], rb[3 * TILE]);
+      off = sw128_offset(n, c);
+      dst += 2 * EXEC_KBLOCK_BYTES;
     }
-    __syncthreads();
+    uint4 big, sml;
+    bool finite = split_tf32(x.x, big.x, sml.x);
+    finite &= split_tf32(x.y, big.y, sml.y);
+    finite &= split_tf32(x.z, big.z, sml.z);
+    finite &= split_tf32(x.w, big.w, sml.w);
+    *reinterpret_cast<uint4*>(dst + off) = big;
+    *reinterpret_cast<uint4*>(dst + EXEC_KBLOCK_BYTES + off) = sml;
+    nonfinite |= !finite;
   }
+  return nonfinite;
+}
+
+// A k-block that holds a big that is not finite: its big halves (A's and
+// Bᵀ's) with every such value set to 0, in place, for the cross terms
+__device__ __forceinline__ void exec_mask_bigs(unsigned char* split) {
+#pragma unroll
+  for (int i = 0; i < EXEC_UNITS; ++i) {
+    const int f = threadIdx.x + EXEC_CONSUMER_THREADS * (i % (EXEC_UNITS / 2));
+    uint4* p = reinterpret_cast<uint4*>(
+        split + (i < EXEC_UNITS / 2 ? 0 : 2 * EXEC_KBLOCK_BYTES) + f * 16);
+    uint4 w = *p;
+    w.x = finite_or_0(w.x); w.y = finite_or_0(w.y);
+    w.z = finite_or_0(w.z); w.w = finite_or_0(w.w);
+    *p = w;
+  }
+}
+
+// p (+)= this warpgroup's 64 rows of A·B over the 8-deep steps [t0, t1) of
+// the split k-block at shared address `sp`: per step small·big (cross),
+// big·small (cross), big·big (bigbig); scale_d = 0 starts p from 0.
+__device__ __forceinline__ void exec_products(float (&p)[64], uint32_t sp,
+                                              int t0, int t1, int scale_d,
+                                              bool cross, bool bigbig) {
+  const uint32_t rows = (threadIdx.x >> 7) * (64 * 128);   // this warpgroup's A
+  const uint32_t a_big = sp + rows, a_small = a_big + EXEC_KBLOCK_BYTES;
+  const uint32_t b_big = sp + 2 * EXEC_KBLOCK_BYTES;
+  const uint32_t b_small = b_big + EXEC_KBLOCK_BYTES;
+#pragma unroll
+  for (int t = t0; t < t1; ++t) {
+    const uint32_t k = 32 * t;           // 8 tf32 = 32 bytes a step
+    if (cross) {
+      wgmma_tf32_n128(p, kmajor_sw128_desc(a_small + k),
+                      kmajor_sw128_desc(b_big + k), scale_d);
+      wgmma_tf32_n128(p, kmajor_sw128_desc(a_big + k),
+                      kmajor_sw128_desc(b_small + k), 1);
+      scale_d = 1;
+    }
+    if (bigbig) {
+      wgmma_tf32_n128(p, kmajor_sw128_desc(a_big + k),
+                      kmajor_sw128_desc(b_big + k), scale_d);
+      scale_d = 1;
+    }
+  }
+}
+
+// The shared state of an executor CTA: the ring's raw stages, the two
+// split buffers and the barriers, from a 1024-byte-aligned base.
+struct ExecSmem {
+  unsigned char* base;
+  __device__ unsigned char* raw(int n) const {
+    return base + (n % EXEC_STAGES) * EXEC_RAW_BYTES;
+  }
+  __device__ unsigned char* split(int n) const {
+    return base + EXEC_STAGES * EXEC_RAW_BYTES + (n & 1) * EXEC_SPLIT_BYTES;
+  }
+  __device__ uint64_t* bars() const {
+    return reinterpret_cast<uint64_t*>(
+        base + EXEC_STAGES * EXEC_RAW_BYTES + 2 * EXEC_SPLIT_BYTES);
+  }
+  __device__ uint32_t full(int n) const { return smem_u32(bars() + n % EXEC_STAGES); }
+  __device__ uint32_t empty(int n) const {
+    return smem_u32(bars() + EXEC_STAGES + n % EXEC_STAGES);
+  }
+  __device__ volatile int* rows_done() const {
+    return reinterpret_cast<volatile int*>(bars() + 2 * EXEC_STAGES);
+  }
+};
+
+// The consumers' split of k-block n of the stream once it has landed, with
+// the barrier that makes it visible to both warpgroups' products and frees
+// its raw stage; returns whether the k-block holds a big that is not
+// finite.
+__device__ __forceinline__ bool exec_split_whole(const ExecSmem& sm, int n) {
+  mbar_wait(sm.full(n), (n / EXEC_STAGES) & 1);
+  const bool nf = exec_split<1>(sm.raw(n), sm.split(n), 0);
+  fence_proxy_async_shared();
+  const bool any = consumers_sync_or(nf);
+  if (threadIdx.x == 0) mbar_arrive(sm.empty(n));
+  return any;
+}
+
+// One MATMUL row on the consumer warpgroups, D += A @ B over k-blocks n0,
+// n0 + 1, ... of the stream. `ready`: the row before split k-block n0 (its
+// non-finite flag in `mask`). `prefetch`: the next work row is a MATMUL
+// that reads neither operand from D; its first k-block is split here,
+// under this row's last products (its flag left in `mask`). acc starts as
+// this thread's 64 elements of D, loaded before the first products so that
+// their latency hides under them (read after the end of the row before,
+// the last to write D, and before this row writes it: the old D, as the
+// reference reads it). Each k-block is summed in EXEC_GROUPS fresh
+// accumulators p (EXEC_FRESH_K deep, from 0), each added to acc in f32
+// with rounding to nearest: the tensor cores sum with truncation, and p
+// starts from 0 at a fraction of acc's size. Measured on the card, one
+// fresh accumulator a 32-deep k-block keeps the smoke's matmul, mixed and
+// chained queues within 6.7e-6, 1.7e-6 and 9.5e-6 of the f32 plain
+// version (rtol/atol 1e-4) and is ~10% faster than one an 8-deep step
+// (EXEC_FRESH_K = 8), which must wait for the tensor cores four times a
+// k-block. A coarser one (the whole 128-deep product) would wait no less,
+// as the split buffers turn over every k-block, and would sum with
+// truncation at the product's full size, which mma_kblock's note above
+// finds past 1e-4. Accumulator register i of
+// thread t: row 16 (warp % 4) + t % 32 / 4 + 8 (i % 4 / 2) of this
+// warpgroup's 64, column 8 (i / 4) + 2 (t % 4) + i % 2.
+__device__ void exec_matmul_row(const ExecSmem& sm, float* D, int n0,
+                                bool ready, bool prefetch, bool& mask) {
+  constexpr int KBLOCKS = TILE / EXEC_KB;
+  constexpr int STEPS = EXEC_FRESH_K / 8;
+  const int lane = threadIdx.x & 31;
+  float* d0 = D + ((threadIdx.x >> 7) * 64 + ((threadIdx.x >> 5) & 3) * 16 +
+                   (lane >> 2)) * TILE + 2 * (lane & 3);
+  float acc[64], p[64];
+#pragma unroll
+  for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 v = *reinterpret_cast<const float2*>(d0 + 8 * h * TILE + 8 * j);
+      acc[4 * j + 2 * h] = v.x;
+      acc[4 * j + 2 * h + 1] = v.y;
+    }
+  if (!ready) mask = exec_split_whole(sm, n0);
+#pragma unroll 1
+  for (int kb = 0; kb < KBLOCKS; ++kb) {
+    const int n = n0 + kb;
+    const uint32_t sp = smem_u32(sm.split(n));
+    const bool has_next = kb + 1 < KBLOCKS || prefetch;
+    bool nf = false;
+    if (!mask) {
+#pragma unroll
+      for (int g = 0; g < EXEC_GROUPS; ++g) {
+        wgmma_fence();
+        exec_products(p, sp, g * STEPS, (g + 1) * STEPS, 0, true, true);
+        wgmma_commit();
+        fence_regs(p);
+        if (has_next) {                  // the next k-block's split, in parts
+          if (g == 0) mbar_wait(sm.full(n + 1), ((n + 1) / EXEC_STAGES) & 1);
+          nf |= exec_split<EXEC_GROUPS>(sm.raw(n + 1), sm.split(n + 1), g);
+        }
+        wgmma_wait_all();
+        fence_regs(p);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] += p[i];
+      }
+    } else {
+      // a big that is not finite: big·big first, then the cross terms with
+      // such bigs taken as 0 (inf * small is NaN where small is 0, and the
+      // wrong infinity where it has the other sign); inf and NaN then
+      // propagate through big·big alone, as they do in FFMA
+      wgmma_fence();
+      exec_products(p, sp, 0, EXEC_KB / 8, 0, false, true);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(p);
+      consumers_sync();                  // both warpgroups done with the bigs
+      exec_mask_bigs(sm.split(n));
+      fence_proxy_async_shared();
+      consumers_sync();
+      wgmma_fence();
+      exec_products(p, sp, 0, EXEC_KB / 8, 1, true, false);
+      wgmma_commit();
+      fence_regs(p);
+      if (has_next) {
+        mbar_wait(sm.full(n + 1), ((n + 1) / EXEC_STAGES) & 1);
+        nf = exec_split<1>(sm.raw(n + 1), sm.split(n + 1), 0);
+      }
+      wgmma_wait_all();
+      fence_regs(p);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] += p[i];
+    }
+    // the next k-block's split is visible to both warpgroups, and both are
+    // done reading this one's buffer (the split after next overwrites it)
+    fence_proxy_async_shared();
+    const bool any = consumers_sync_or(nf);
+    if (has_next) {
+      mask = any;
+      if (threadIdx.x == 0) mbar_arrive(sm.empty(n + 1));
+    }
+  }
+  // every k-block of A and B has landed: D may alias either
+#pragma unroll
+  for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(d0 + 8 * h * TILE + 8 * j) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+}
+
+__device__ __forceinline__ int exec_op(const int* d) {
+  return min(max(d[W_OPCODE], 0), NUM_OPS - 1);
+}
+
+// Whether the first work row after row i is a MATMUL that reads neither
+// operand from tile `dst` (the row i writes).
+__device__ __forceinline__ bool exec_prefetch(const int* qc, int i, int Q,
+                                              int nbuf, int dst) {
+  int j = i + 1;
+  while (j < Q && qc[(size_t)j * DESC_WIDTH + W_STATUS] < THREAD_WORK) ++j;
+  if (j >= Q) return false;
+  const int* d = qc + (size_t)j * DESC_WIDTH;
+  return exec_op(d) == OP_MATMUL &&
+         tile_index(d[W_ARG0] & 255, nbuf) != dst &&
+         tile_index(d[W_ARG1], nbuf) != dst;
+}
+
+// The producer warp: every MATMUL row's k-blocks into the ring, in queue
+// order, each row as soon as the rows before it allow (above).
+__device__ void exec_produce(const ExecSmem& sm, const CUtensorMap* tm_ws,
+                             const int* qc, const float* wsc, int c, int Q,
+                             int nbuf) {
+  const int lane = threadIdx.x & 31;
+  int n = 0;                  // k-blocks issued
+  int ord = 0;                // work rows seen
+  int prev_dst = -1;          // the tile the previous work row writes, or -1
+  for (int i = 0; i < Q; ++i) {
+    const int* d = qc + (size_t)i * DESC_WIDTH;
+    if (d[W_STATUS] < THREAD_WORK) continue;
+    const int op = exec_op(d);
+    const int dst = tile_index(d[W_ARG0] >> 8, nbuf);
+    if (op == OP_MATMUL) {
+      const int a = tile_index(d[W_ARG0] & 255, nbuf);
+      const int b = tile_index(d[W_ARG1], nbuf);
+      const int need = prev_dst == a || prev_dst == b ? ord : ord - 1;
+      if (lane == 0) {
+        uint32_t polls = 0;
+        while (*sm.rows_done() < need) {
+          __nanosleep(64);
+          if (++polls == (1u << 28)) __trap();
+        }
+      }
+      __syncwarp();
+      __threadfence_block();
+      fence_proxy_async_global();        // the done rows' writes, then our reads
+      const int a_row = (c * nbuf + a) * TILE;   // A's first row in the map
+      const float* B = wsc + (size_t)b * TT;
+      for (int kb = 0; kb < TILE / EXEC_KB; ++kb, ++n) {
+        if (lane == 0) {
+          mbar_wait(sm.empty(n), ((n / EXEC_STAGES) & 1) ^ 1);
+          mbar_expect_tx(sm.full(n), EXEC_RAW_BYTES);
+        }
+        if (lane == 0) {
+          const uint32_t raw = smem_u32(sm.raw(n));
+          tma_load_2d(raw, tm_ws, sm.full(n), kb * EXEC_KB, a_row);
+          bulk_load(raw + EXEC_KBLOCK_BYTES, B + kb * EXEC_KB * TILE,
+                    EXEC_KBLOCK_BYTES, sm.full(n));
+        }
+      }
+    }
+    prev_dst = op >= OP_MATMUL && op <= OP_COPY ? dst : -1;
+    ++ord;
+  }
+}
+
+// K3: one CTA a cluster runs its whole queue in order (rows with a work
+// status, opcodes clipped to the 6-op table) and writes one from_gpu row.
+__global__ void __launch_bounds__(EXEC_THREADS, 1)
+execute_kernel(const __grid_constant__ CUtensorMap tm_ws, const int* queue,
+               float* ws, int* fromgpu, int Q, int nbuf) {
+  extern __shared__ __align__(16) unsigned char exec_smem[];
+  const uint32_t s0 = smem_u32(exec_smem);
+  ExecSmem sm{exec_smem + (((s0 + EXEC_SMEM_ALIGN - 1) &
+                            ~(uint32_t)(EXEC_SMEM_ALIGN - 1)) - s0)};
+  const int c = blockIdx.x;
+  const int* qc = queue + (size_t)c * Q * DESC_WIDTH;
+  float* wsc = ws + (size_t)c * nbuf * TT;
   if (threadIdx.x == 0) {
-    int* fg = fromgpu + (size_t)c * DESC_WIDTH;
-    for (int w = 0; w < DESC_WIDTH; ++w) fg[w] = 0;
-    fg[W_STATUS] = THREAD_FINISHED;
-    fg[W_ARG0] = done;
+    for (int s = 0; s < EXEC_STAGES; ++s) {
+      mbar_init(sm.full(s), 1);
+      mbar_init(sm.empty(s), 1);
+    }
+    *sm.rows_done() = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+  if (threadIdx.x >= EXEC_CONSUMER_THREADS) {
+    exec_produce(sm, &tm_ws, qc, wsc, c, Q, nbuf);
+  } else {
+    int n = 0, done = 0;
+    bool ready = false;      // the row before split this row's first k-block
+    bool mask = false;       // ... and it holds a big that is not finite
+    for (int i = 0; i < Q; ++i) {
+      const int* d = qc + (size_t)i * DESC_WIDTH;
+      if (d[W_STATUS] < THREAD_WORK) continue;     // uniform over the CTA
+      const int op = exec_op(d);
+      const int dst = tile_index(d[W_ARG0] >> 8, nbuf);
+      if (op == OP_MATMUL) {
+        const bool prefetch = exec_prefetch(qc, i, Q, nbuf, dst);
+        exec_matmul_row(sm, wsc + (size_t)dst * TT, n, ready, prefetch, mask);
+        n += TILE / EXEC_KB;
+        ready = prefetch;
+      } else if (op != 0) {
+        elementwise_part<EXEC_CONSUMER_THREADS>(
+            op, wsc, dst, tile_index(d[W_ARG0] & 255, nbuf), d[W_ARG1], nbuf);
+      }
+      fence_proxy_async_global();        // this row's writes, then the
+      consumers_sync();                  // producer's reads of them
+      ++done;
+      if (threadIdx.x == 0) {
+        __threadfence_block();
+        *sm.rows_done() = done;
+      }
+    }
+    if (threadIdx.x == 0) {
+      int* fg = fromgpu + (size_t)c * DESC_WIDTH;
+      for (int w = 0; w < DESC_WIDTH; ++w) fg[w] = 0;
+      fg[W_STATUS] = THREAD_FINISHED;
+      fg[W_ARG0] = done;
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// Error codes of this file besides cudaError_t (persistent_error_string).
+constexpr int ERR_NO_ENCODER = -2;
+constexpr int ERR_ENCODE = -3;
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so the
+// library needs no -lcuda.
+EncodeTiledFn encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+    else
+      cudaGetLastError();
+  }
+  return fn;
+}
+
+// The workspace (C, nbuf, 128, 128) f32 as a 2-D tensor (128 columns,
+// C * nbuf * 128 rows), boxes of EXEC_KB columns x 128 rows (one k-block
+// of a tile) in the 128-byte swizzle.
+int encode_ws(CUtensorMap* map, void* ws, int C, int nbuf) {
+  EncodeTiledFn fn = encoder();
+  if (fn == nullptr) return ERR_NO_ENCODER;
+  const cuuint64_t dims[2] = {(cuuint64_t)TILE,
+                              (cuuint64_t)C * nbuf * TILE};
+  const cuuint64_t strides[1] = {(cuuint64_t)TILE * 4};
+  const cuuint32_t box[2] = {EXEC_KB, TILE};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, ws, dims,
+                        strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
 }
 
 // The dynamic shared memory a drain launch asks for: DRAIN_SMEM_BYTES, or
@@ -771,16 +1254,33 @@ extern "C" void persistent_drain_request_smem(int bytes) {
 }
 
 // K3: queue (C, Q, DESC_WIDTH) i32, ws (C, nbuf, 128, 128) f32 (in place)
-// -> fromgpu (C, DESC_WIDTH) i32. Returns the launch's cudaError_t.
+// -> fromgpu (C, DESC_WIDTH) i32. Returns the cudaError_t of the attribute
+// call or of the launch, or a negative code of this file (no tensor-map
+// encoder, a refused tensor map); nothing runs if either of the first fail.
 extern "C" int persistent_execute(const void* queue, void* ws, void* fromgpu,
                                   int C, int Q, int nbuf, void* stream) {
   if (C < 1) return 0;
-  execute_kernel<<<C, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(queue), static_cast<float*>(ws),
+  auto kern = execute_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, EXEC_SMEM_BYTES);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(err);
+  }
+  CUtensorMap tm;
+  const int e = encode_ws(&tm, ws, C, nbuf);
+  if (e) return e;
+  execute_kernel<<<C, EXEC_THREADS, EXEC_SMEM_BYTES,
+                   static_cast<cudaStream_t>(stream)>>>(
+      tm, static_cast<const int*>(queue), static_cast<float*>(ws),
       static_cast<int*>(fromgpu), Q, nbuf);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* persistent_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  switch (err) {
+    case ERR_NO_ENCODER: return "cuTensorMapEncodeTiled not found in the driver";
+    case ERR_ENCODE: return "cuTensorMapEncodeTiled refused the tensor map";
+    default: return cudaGetErrorString(static_cast<cudaError_t>(err));
+  }
 }

@@ -7,9 +7,10 @@ Port of ``repro.kernels.persistent.kernel`` (``_drain_kernel``,
 ``persistent_drain_prof`` and ``persistent_execute`` launch the CUDA kernels
 in ``csrc/persistent.cu`` for CUDA tensors and use the plain versions
 (``drain_plain``, ``execute_plain``) for CPU tensors — the only case in which
-they do. On a CUDA tensor they launch the kernel or raise. K1/K2 form their
-tile products in 3xTF32 on the tensor cores (within 1e-4 of the plain
-version's f32 ``torch.bmm``); K3 in f32 FFMA.
+they do. On a CUDA tensor they launch the kernel or raise. All three form
+their tile products in 3xTF32 on the tensor cores (within 1e-4 of the
+plain version's f32 ``torch.bmm``): K1/K2 with ``mma.sync``, K3 with
+``wgmma``.
 
 Where the reference's numpy oracle and its Pallas kernel differ, both
 versions here follow the kernel: a tile index ``i`` (``dst``, ``a`` or
@@ -225,6 +226,8 @@ def _check(queue, ws, **small) -> None:
     for name, t in (("queue", queue), ("workspace", ws), *small.items()):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if ws.data_ptr() % 16:
+        raise ValueError("workspace must be 16-byte aligned")
 
 
 def _raise_on(err: int, what: str) -> None:

@@ -5,6 +5,7 @@ against the reference's Pallas kernels in interpret mode and against its
 oracles, on inputs drawn with numpy: f32 to 2e-5 (summation order), bf16
 to 2e-2 (one bf16 rounding of the output). The kernel-vs-plain cases are
 in test_torch_kernels_card.py."""
+import math
 import re
 
 import jax.numpy as jnp
@@ -19,6 +20,7 @@ from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.models.attention import decode_attention_local
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
+from repro_torch.kernels.decode_attention import kernel as DK
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.flash_attention import kernel as FK
@@ -180,3 +182,153 @@ def test_decode_plain_bf16_matches_reference():
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32),
                                atol=BF16_ATOL, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# K4's one-launch design: the device-side split and the cluster merge,
+# written out in PyTorch, against the plain version, the reference's
+# interpret-mode Pallas kernel and its oracle
+# ---------------------------------------------------------------------------
+
+def split_ranges(valid_len, S: int, window: int, n_split: int):
+    """The key ranges K4's CTAs take, as csrc/decode_attention.cu
+    (``split_range``) derives them on the device: the live positions [lo, valid) of each sequence (valid =
+    min(valid_len, S), lo = valid - window with a window, else 0) cut into
+    n_split even ranges. Returns (a, e), each (B, n_split) int64: split s of
+    sequence b covers [a[b, s], e[b, s]), empty where a >= e."""
+    valid = valid_len.long().clamp(max=S)
+    lo = (valid - window).clamp(min=0) if window > 0 else \
+        torch.zeros_like(valid)
+    chunk = ((valid - lo).clamp(min=0) + n_split - 1) // n_split
+    sp = torch.arange(n_split, device=valid.device)
+    a = lo[:, None] + sp[None, :] * chunk[:, None]
+    e = torch.minimum(a + chunk[:, None], valid[:, None])
+    return a, e
+
+
+def decode_attention_split_plain(q, k_cache, v_cache, valid_len, n_split: int,
+                                 *, attn_softcap: float = 0.0,
+                                 window: int = 0):
+    """K4's algorithm in plain PyTorch: per-split partials (max,
+    sum of exponentials, unnormalised output) in f32 over the ranges of
+    ``split_ranges``, then the merge every CTA of a cluster does
+    (decode_attention_sharded's): m = max over splits, c = exp(m_s - m),
+    0 for empty splits, out = sum(c * acc) / max(sum(c * l), 1e-30).
+    Shapes as ``decode_attention_plain``."""
+    B, S, Hkv, D = k_cache.shape
+    G = q.shape[2] // Hkv
+    kf = k_cache.float().repeat_interleave(G, dim=2)
+    vf = v_cache.float().repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhk", q.float(), kf) / math.sqrt(D)
+    if attn_softcap > 0:
+        s = torch.tanh(s / attn_softcap) * attn_softcap
+    a, e = split_ranges(valid_len.to(q.device), S, window, n_split)
+    pos = torch.arange(S, device=q.device)
+    # (B, n_split, S): position in the split's range
+    live = (pos[None, None, :] >= a[:, :, None]) & \
+        (pos[None, None, :] < e[:, :, None])
+    ss = torch.where(live[:, :, None, :], s[:, None], -math.inf)
+    m = ss.amax(dim=-1)                                   # (B, n, Hq)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.where(live[:, :, None, :], torch.exp(ss - m_safe[..., None]),
+                    torch.zeros_like(ss))
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bnhk,bkhd->bnhd", p, vf)
+    mg = m.amax(dim=1, keepdim=True)
+    mg = torch.where(torch.isfinite(mg), mg, torch.zeros_like(mg))
+    c = torch.where(torch.isfinite(m), torch.exp(m - mg), torch.zeros_like(m))
+    o = (c[..., None] * acc).sum(dim=1) / \
+        (c * l).sum(dim=1).clamp(min=1e-30)[..., None]
+    return o[:, None].to(q.dtype)
+
+
+SPLIT_CASES = {
+    # (B, S, Hq, Hkv, D, valid_len, n_split, kwargs): lengths 1, 17 and S;
+    # split counts that divide neither S nor the live lengths; a window
+    # and a softcap; one split, and more splits than a short sequence has
+    # keys (empty splits)
+    "ragged_1_17_S_n8": (3, 64, 8, 2, 64, [1, 17, 64], 8, {}),
+    "ragged_n3": (3, 64, 4, 1, 32, [64, 17, 1], 3, {}),
+    "window_n5": (2, 48, 4, 1, 32, [48, 20], 5, dict(window=8)),
+    "softcap_n7": (2, 32, 4, 2, 32, [5, 32], 7, dict(attn_softcap=5.0)),
+    "window_softcap_n1": (2, 40, 4, 4, 32, [40, 9], 1,
+                          dict(window=16, attn_softcap=20.0)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_decode_split_and_merge_match_plain_pallas_and_reference(case):
+    B, S, Hq, Hkv, D, valid, n_split, kw = SPLIT_CASES[case]
+    q, k, v = _qkv(5, B, S, Hq, Hkv, D, Sq=1)
+    vl = np.asarray(valid, np.int32)
+    got = decode_attention_split_plain(*_t(q, k, v, vl), n_split,
+                                          **kw).numpy()
+    np.testing.assert_allclose(
+        got, decode_attention_plain(*_t(q, k, v, vl), **kw).numpy(),
+        atol=F32_ATOL, rtol=0)
+    jargs = [jnp.asarray(a) for a in (q, k, v, vl)]
+    np.testing.assert_allclose(
+        got, np.asarray(j_decode(*jargs, interpret=True, **kw)),
+        atol=F32_ATOL, rtol=0)
+    np.testing.assert_allclose(
+        got, np.asarray(decode_attention_ref(*jargs, **kw)),
+        atol=F32_ATOL, rtol=0)
+
+
+def test_decode_split_ranges_cover_the_live_keys_evenly():
+    """The ranges the kernel's CTAs derive from valid_len: disjoint, in
+    order, covering exactly [max(0, valid - window), min(valid_len, S)),
+    each at most ceil(live / n_split) keys; empty where a >= e."""
+    S = 100
+    for window in (0, 1, 30, 200):
+        for n in (1, 2, 3, 7, 8):
+            vl = torch.tensor([1, 2, 17, 33, 99, 100, 250], dtype=torch.int32)
+            a, e = split_ranges(vl, S, window, n)
+            for b, length in enumerate(vl.tolist()):
+                valid = min(length, S)
+                lo = max(0, valid - window) if window else 0
+                keys = [x for s in range(n)
+                        for x in range(int(a[b, s]), int(e[b, s]))]
+                assert keys == list(range(lo, valid)), (window, n, length)
+                live = -(-(valid - lo) // n)
+                assert int((e[b] - a[b]).clamp(min=0).max()) <= live
+
+
+def test_decode_split_count_and_cuda_geometry():
+    """Every K4 instance asks for no more dynamic shared memory than a block
+    may opt into at the largest group. FFMA (f32, and bf16 at D = 256): the
+    ring of its cp.async stages, then q, the probabilities and the partial
+    the cluster merge reads; tiles are whole 32-key warps. Tensor cores
+    (bf16 at D = 64 and 128): the ring, or the warps' partials and the
+    CTA's merged one laid over it once it has drained; 16 keys a warp, rows padded so the 8 rows of an
+    ldmatrix read fall on distinct banks. Rings have >= 2 stages, padded
+    rows keep 16-byte copies aligned. Clusters stay within the portable 8
+    CTAs, and the wrapper's split count never leaves [1, MAX_CLUSTER]; at
+    the serve path's long cache (llama3-8b's 32 sequence x kv-head pairs)
+    it makes two CTAs an SM."""
+    k = _cuda_constants(DK.SOURCE)
+    assert k["MAX_CLUSTER"] == DK.MAX_CLUSTER <= 8
+    assert k["MAX_G"] == DK.MAX_GROUP <= 16
+    ffma = [("BF16", 2, 256)] + [("F32", 4, d) for d in DK.HEAD_DIMS]
+    for dtype, size, d in ffma:
+        bk, stages = k[f"BK_{dtype}_D{d}"], k[f"STAGES_{dtype}_D{d}"]
+        assert bk % 32 == 0 and 32 <= bk <= 64 and stages >= 2
+        kstride = d + 16 // size
+        ring = stages * bk * (kstride + d) * size
+        extra = k["MAX_G"] * (2 * d + bk + 2) * 4
+        assert ring + extra <= H100_SMEM_OPTIN, (dtype, d)
+        assert (kstride * size) % 16 == 0
+    assert k["MMA_BK"] == 16 * k["MMA_WARPS"]
+    for d in (64, 128):
+        stages = k[f"STAGES_MMA_D{d}"]
+        row = (d + 8) * 2
+        ring = stages * 2 * k["MMA_BK"] * row
+        part = (k["MMA_WARPS"] + 1) * k["MAX_G"] * (d + 2) * 4
+        assert stages >= 2 and max(ring, part) <= H100_SMEM_OPTIN
+        assert row % 16 == 0
+        banks = {(r * row // 4 + w) % 32 for r in range(8) for w in range(4)}
+        assert len(banks) == 32, d
+    for B, S, Hkv in ((4, 128, 8), (4, 4096, 8), (1, 17, 8), (64, 8192, 8),
+                      (1, 1, 1), (2, 300, 16)):
+        assert 1 <= DK.split_count(B, S, Hkv) <= DK.MAX_CLUSTER
+    assert DK.split_count(4, 4096, 8) * 4 * 8 >= 2 * 128

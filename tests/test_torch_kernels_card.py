@@ -19,6 +19,7 @@ from repro_torch.kernels.persistent import kernel as PK
 from repro_torch.core import mailbox as mb
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
+from repro_torch.kernels.decode_attention import kernel as DK
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.flash_attention import kernel as FK
@@ -128,6 +129,7 @@ def test_flash_launcher_raises_when_shared_memory_is_refused(cuda,
                                atol=BF16_ATOL, rtol=0)
 
 
+RAGGED = [4096, 3000, 1025, 17]
 GPU_DECODE = [
     # (B, S, Hq, Hkv, D, dtype, valid_len, kwargs)
     (4, 128, 32, 8, 128, torch.bfloat16, [128, 1, 77, 64], {}),
@@ -135,6 +137,14 @@ GPU_DECODE = [
     (2, 300, 16, 16, 64, torch.float32, [300, 45], {}),
     (2, 260, 8, 1, 256, torch.float32, [260, 100],
      dict(window=70, attn_softcap=20.0)),
+    # the long ragged cache: G = 1 and G = 16, D = 64 and D = 256, a window
+    (4, 4096, 32, 8, 128, torch.bfloat16, RAGGED, {}),
+    (4, 4096, 8, 8, 128, torch.bfloat16, RAGGED, {}),
+    (4, 4096, 16, 1, 64, torch.bfloat16, RAGGED, {}),
+    (4, 4096, 32, 2, 256, torch.bfloat16, RAGGED, {}),
+    (4, 4096, 32, 8, 128, torch.bfloat16, RAGGED, dict(window=1000)),
+    (2, 1001, 32, 8, 128, torch.float32, [1001, 333],
+     dict(window=100, attn_softcap=30.0)),
 ]
 
 
@@ -152,6 +162,59 @@ def test_decode_kernel_matches_plain_on_card(cuda, B, S, Hq, Hkv, D, dtype,
     want = decode_attention_plain(q, k, v, vl, **kw)
     atol = BF16_ATOL if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_split", [1, 3, 5, 7, 8])
+def test_decode_kernel_split_counts_on_card(cuda, monkeypatch, n_split):
+    """Every cluster size, none of which divides S or the live lengths."""
+    monkeypatch.setattr(DK, "split_count", lambda *shape: n_split)
+    q, k, v = [t.to(cuda, torch.bfloat16)
+               for t in _t(*_qkv(8, 2, 1001, 16, 4, 128, Sq=1))]
+    vl = torch.tensor([1001, 250], dtype=torch.int32, device=cuda)
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, vl, window=600)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    want = decode_attention_plain(q, k, v, vl, window=600)
+    torch.testing.assert_close(got.float(), want.float(), atol=BF16_ATOL,
+                               rtol=0)
+
+
+@pytest.mark.gpu
+def test_decode_launcher_raises_when_the_cluster_is_refused(cuda,
+                                                            monkeypatch):
+    """A cluster the card refuses (16 CTAs, past the portable 8, asked
+    without the non-portable attribute) makes the wrapper raise and launch
+    nothing: no count, the output it allocated unwritten. The next call
+    with the wrapper's own split count runs."""
+    q, k, v = [t.to(cuda, torch.bfloat16)
+               for t in _t(*_qkv(9, 4, 512, 32, 8, 128, Sq=1))]
+    vl = torch.tensor([512, 100, 7, 1], dtype=torch.int32, device=cuda)
+    sentinel = []
+
+    def empty_like(t):
+        out = torch.full_like(t, 7.0)
+        sentinel.append(out)
+        return out
+
+    monkeypatch.setattr(DK.torch, "empty_like", empty_like)
+    own = DK.split_count
+    monkeypatch.setattr(DK, "split_count", lambda *shape: 16)
+    before = decode_attention.launches
+    with pytest.raises(RuntimeError, match="decode_attention"):
+        decode_attention(q, k, v, vl)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before
+    assert len(sentinel) == 1 and bool((sentinel[0] == 7.0).all())
+    monkeypatch.setattr(DK, "split_count", own)
+    got = decode_attention(q, k, v, vl)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    assert got is sentinel[1]
+    torch.testing.assert_close(got.float(),
+                               decode_attention_plain(q, k, v, vl).float(),
+                               atol=BF16_ATOL, rtol=0)
 
 
 @pytest.mark.gpu
@@ -398,10 +461,49 @@ def test_drain_launcher_raises_when_shared_memory_is_refused(cuda):
     assert not torch.equal(ws, ws0)
 
 
+def _inf_queue():
+    """A product whose A holds an inf: its row of the product is +inf
+    (every B entry positive), as in f32 math, not NaN."""
+    rng = np.random.default_rng(14)
+    ws = rng.uniform(0.5, 1.0, (2, 4, P.TILE, P.TILE)).astype(np.float32)
+    ws[:, 0, 3, 7] = np.inf
+    ring = P.build_queue([[(MM, *P.pack_args(2, 0, 1)),
+                           (MM, *P.pack_args(3, 1, 1))]] * 2, 4)
+    return torch.from_numpy(ring), torch.from_numpy(ws)
+
+
+def _demo_queue():
+    rng = np.random.default_rng(1)
+    ws = np.zeros((4, 5, P.TILE, P.TILE), np.float32)
+    ws[:, :3] = rng.standard_normal((4, 3, P.TILE, P.TILE)) * 0.1
+    return (torch.from_numpy(P.build_queue([P.mlp_program()] * 4, 4)),
+            torch.from_numpy(ws))
+
+
+EXECUTE_CASES = {
+    "random_seed2": lambda: _tile_queue(2, 4, 12)[1:3],
+    "random_seed3": lambda: _tile_queue(3, 4, 12)[1:3],
+    # each row's dst the next row's a: the producer may load no row ahead
+    "chained_C4_Q64": lambda: _program_queue(
+        5, _chained(4, 64), 64, scale=0.025)[1:3],
+    # dst == a, dst == b, dst == a == b
+    "aliasing": lambda: DRAIN_CASES["aliasing"]()[1:3],
+    # products loaded ahead and not, across inactive and elementwise rows
+    "prefetch_taken_and_refused": lambda: _program_queue(
+        12, [PREFETCH, PREFETCH[::-1]], 16)[1:3],
+    "independent_C1_Q64": lambda: _program_queue(
+        10, _independent(1, 64), 64)[1:3],
+    "mlp_demo": _demo_queue,
+    "inf": _inf_queue,
+}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("seed", [2, 3])
-def test_execute_kernel_matches_plain_on_card(cuda, seed):
-    _, ring, ws, _, _ = _tile_queue(seed, 4, 12)
+@pytest.mark.parametrize("case", list(EXECUTE_CASES))
+def test_execute_kernel_matches_plain_on_card(cuda, case):
+    """K3 (3xTF32 wgmma products fed by the producer warp) against the
+    plain executor: from_gpu rows equal, workspaces within 1e-4."""
+    ring, ws = EXECUTE_CASES[case]()
     before = P.persistent_execute.launches
     got = P.persistent_execute(ring.to(cuda), ws.to(cuda))
     torch.cuda.synchronize()
@@ -409,3 +511,6 @@ def test_execute_kernel_matches_plain_on_card(cuda, seed):
     want = P.execute_plain(ring.to(cuda), ws.to(cuda))
     torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=1e-4)
     assert torch.equal(got[1], want[1])
+    if case == "inf":
+        assert bool(torch.isposinf(got[0][:, 2, 3]).all())
+        assert not bool(torch.isnan(got[0]).any())

@@ -7,9 +7,10 @@ carries agree within rtol/atol 1e-4 (f32 sums in another order). The cases
 include what the reference's numpy oracle gets wrong and its kernel does
 not: out-of-range and negative tile indices and opcodes.
 
-K1/K2 form tile products in 3xTF32 on the card; a numpy emulation of that
-split holds the plain drain to its f32 self on ``chip_smoke.py``'s queues
-before any card time is spent."""
+K1-K3 form tile products in 3xTF32 on the card; a numpy emulation of that
+split, in each kernel's order of sums, holds the plain drain and the plain
+executor to their f32 selves on ``chip_smoke.py``'s queues before any card
+time is spent."""
 import importlib.util
 import re
 from pathlib import Path
@@ -259,19 +260,23 @@ def test_tile_state_and_helpers_match_reference():
 
 
 # csrc/persistent.cu's own geometry (no Python counterpart), held to what
-# the kernel relies on below
-GEOMETRY = {"NT", "KB", "DRAIN_WARPS_M", "DRAIN_WARPS_N", "RING_STAGES",
-            "RING_KB", "RING_A_LD", "RING_B_LD", "SMALL_BUFFERS"}
+# the kernels rely on below, and its error codes
+GEOMETRY = {"DRAIN_WARPS_M", "DRAIN_WARPS_N", "RING_STAGES", "RING_KB",
+            "RING_A_LD", "RING_B_LD", "SMALL_BUFFERS", "EXEC_CONSUMERS",
+            "EXEC_KB", "EXEC_STAGES", "EXEC_FRESH_K", "EXEC_SMEM_ALIGN",
+            "EXEC_BAR_BYTES"}
+ERROR_CODES = {"ERR_NO_ENCODER", "ERR_ENCODE"}
 H100_SMEM_OPTIN = 232448     # bytes of shared memory a block may opt into
 H100_REGS = 65536            # 32-bit registers of an SM
 
 
 def _source_constants() -> dict:
-    """Every ``constexpr int`` of csrc/persistent.cu, evaluated in order
-    (literals, or C++ integer expressions of the ones before)."""
+    """Every top-level ``constexpr int`` of csrc/persistent.cu, evaluated
+    in order (literals, or C++ integer expressions of the ones before)."""
     src = PK.SOURCE.read_text()
     consts = {}
-    for name, expr in re.findall(r"constexpr int (\w+)\s*=\s*([^;]+);", src):
+    for name, expr in re.findall(r"^constexpr int (\w+)\s*=\s*([^;]+);", src,
+                                 re.M):
         consts[name] = int(eval(expr.replace("/", "//"),
                                 {"__builtins__": {}}, dict(consts)))
     return consts
@@ -284,15 +289,16 @@ def test_cuda_source_constants_equal_python():
     ``test_cuda_ring_geometry``; the rest are expressions of those."""
     src = PK.SOURCE.read_text()
     consts = _source_constants()
-    literals = dict(re.findall(r"constexpr int (\w+) = (-?\d+);", src))
+    literals = dict(re.findall(r"^constexpr int (\w+) = (-?\d+);", src, re.M))
+    assert {int(literals[n]) for n in ERROR_CODES} == {-2, -3}
     names = [n for n in consts if hasattr(t_mb, n) or hasattr(PK, n)]
     assert len(names) >= 35
     for name in names:
         want = getattr(t_mb, name) if hasattr(t_mb, name) else \
             getattr(PK, name)
         assert consts[name] == want, name
-    assert set(literals) <= set(names) | GEOMETRY, \
-        set(literals) - set(names) - GEOMETRY
+    assert set(literals) <= set(names) | GEOMETRY | ERROR_CODES, \
+        set(literals) - set(names) - GEOMETRY - ERROR_CODES
     assert GEOMETRY <= set(literals)
 
 
@@ -302,9 +308,35 @@ def test_cuda_ring_geometry():
     16-byte rows for cp.async, and mma.sync fragment reads on 32 distinct
     banks (A [m][k]: lane = 4 g + t reads row g, column t; B [k][n]: row
     t, column g); ring and small-half buffers take more shared memory than
-    the 48 KB static limit but no more than a block may opt into."""
+    the 48 KB static limit but no more than a block may opt into.
+
+    K3: two consumer warpgroups of 64 product rows (wgmma m64n128) and a
+    producer warp; a k-block row is one 128-byte swizzle row of f32; the
+    fresh accumulators cover whole 8-deep steps; raw stages, two split
+    buffers (big and small halves of A and Bᵀ) and the barriers fit the
+    opt-in from a 1024-byte-aligned base; 224 registers a thread fit the
+    SM; the split's B chunks land on 8 distinct 16-byte bank groups for
+    the 8 lanes of a phase (row n, chunk c ^ n % 8)."""
     k = _source_constants()
-    assert k["NT"] == 256 and TILE % k["KB"] == 0 and k["LDA"] == TILE + 1
+    assert k["EXEC_CONSUMERS"] * 64 == TILE
+    assert k["EXEC_THREADS"] == 128 * k["EXEC_CONSUMERS"] + 32
+    assert k["EXEC_THREADS"] * 224 <= H100_REGS
+    assert k["EXEC_KB"] * 4 == 128 and TILE % k["EXEC_KB"] == 0
+    assert k["EXEC_KB"] % k["EXEC_FRESH_K"] == 0
+    assert k["EXEC_FRESH_K"] % 8 == 0 and k["EXEC_STAGES"] >= 2
+    assert k["EXEC_KBLOCK_BYTES"] == TILE * k["EXEC_KB"] * 4
+    assert k["EXEC_SMEM_BYTES"] == k["EXEC_SMEM_ALIGN"] + \
+        k["EXEC_STAGES"] * 2 * k["EXEC_KBLOCK_BYTES"] + \
+        2 * 4 * k["EXEC_KBLOCK_BYTES"] + k["EXEC_BAR_BYTES"]
+    assert 48 * 1024 < k["EXEC_SMEM_BYTES"] <= H100_SMEM_OPTIN
+    assert k["EXEC_KBLOCK_BYTES"] % k["EXEC_SMEM_ALIGN"] == 0
+    assert 2 * k["EXEC_STAGES"] * 8 + 4 <= k["EXEC_BAR_BYTES"]
+    assert k["EXEC_UNITS"] * k["EXEC_CONSUMER_THREADS"] == \
+        2 * TILE * k["EXEC_KB"] // 4
+    for c in range(8):
+        groups = {((n % 8) * 128 + ((c ^ (n % 8)) << 4)) // 16 % 8
+                  for n in range(8)}
+        assert len(groups) == 8
     assert k["DRAIN_NT"] == 32 * k["DRAIN_WARPS_M"] * k["DRAIN_WARPS_N"]
     assert k["WARP_MT"] * 16 * k["DRAIN_WARPS_M"] == TILE
     assert k["WARP_NT"] * 8 * k["DRAIN_WARPS_N"] == TILE
@@ -431,3 +463,77 @@ def test_3xtf32_drain_matches_plain_on_smoke_queues(queue, monkeypatch):
             torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
     assert not torch.equal(got[0], want[0])      # the split did take effect
     assert float(want[0].abs().max()) < 1e4
+
+
+def _trunc_f32(x):
+    """f64 -> f32 rounded toward zero (the tensor cores' sums)."""
+    r = x.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(x)
+    r[over] = np.nextafter(r[over], np.float32(0))
+    return r
+
+
+def _k3_product(D, A, B, fresh_k, kb=32):
+    """K3's D + A @ B as the card forms it: acc starts as D; each 32-deep
+    k-block is summed in fresh accumulators of fresh_k depth, each 8-deep
+    step adding small·big', big'·small, big·big in that order into the
+    fresh sum with truncation; each fresh sum is added to acc in f32,
+    rounded to nearest."""
+    ab, as_, abm = (t.astype(np.float64) for t in _split(A))
+    bb, bs, bbm = (t.astype(np.float64) for t in _split(B))
+    acc = D.astype(np.float32)
+    for k0 in range(0, TILE, fresh_k):
+        p = np.zeros(D.shape, np.float32)
+        for t in range(k0, k0 + fresh_k, 8):
+            sl = slice(t, t + 8)
+            for x, y in ((as_, bbm), (abm, bs), (ab, bb)):
+                p = _trunc_f32(p + x[..., sl] @ y[..., sl, :])
+        acc = (acc + p).astype(np.float32)
+    return acc
+
+
+def _execute_k3(queue, ws, fresh_k):
+    """The executor over queues of MATMUL and RELU rows, every product in
+    K3's arithmetic (numpy), one cluster at a time."""
+    q, w = queue.numpy(), ws.numpy().copy()
+    nbuf = w.shape[1]
+    idx = lambda i: min(max(i + nbuf if i < 0 else i, 0), nbuf - 1)
+    for c in range(q.shape[0]):
+        for row in q[c]:
+            if row[mb.W_STATUS] < mb.THREAD_WORK:
+                continue
+            dst, a = idx(row[mb.W_ARG0] >> 8), idx(row[mb.W_ARG0] & 255)
+            if row[mb.W_OPCODE] == J.OP_MATMUL:
+                w[c, dst] = _k3_product(w[c, dst], w[c, a],
+                                        w[c, idx(row[mb.W_ARG1])], fresh_k)
+            else:
+                assert row[mb.W_OPCODE] == J.OP_RELU
+                w[c, dst] = np.maximum(w[c, a], 0)
+    return torch.from_numpy(w)
+
+
+@pytest.mark.parametrize("queue", ["demo", "matmul", "chained"])
+def test_3xtf32_execute_matches_plain_on_smoke_queues(queue):
+    """K3's arithmetic (3xTF32 on wgmma: D loaded into the accumulator,
+    fresh sums of EXEC_FRESH_K depth, as csrc/persistent.cu sets it)
+    against the plain executor in f32, on the first clusters of
+    ``chip_smoke.py``'s queues (seed 0; the chained queue on its scaled
+    workspace) and on its tile-MLP demo: within the card's 1e-4."""
+    cs = _chip_smoke()
+    fresh_k = _source_constants()["EXEC_FRESH_K"]
+    if queue == "demo":
+        rng = np.random.default_rng(1)
+        w = np.zeros((2, 5, TILE, TILE), np.float32)
+        w[:, :3] = rng.standard_normal((2, 3, TILE, TILE)) * 0.1
+        ws = torch.from_numpy(w)
+        ring = torch.from_numpy(P.build_queue([P.mlp_program()] * 2, 4))
+    else:
+        inp = cs.tile_inputs(C=2, device="cpu")
+        ring = inp[queue][1][:, :16].contiguous()
+        ws = inp["ws"] * (cs.CHAIN_SCALE if queue == "chained" else 1.0)
+    want, fromgpu = PK.execute_plain(ring, ws.clone())
+    got = _execute_k3(ring, ws, fresh_k)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert not torch.equal(got, want)            # the emulation took effect
+    assert fromgpu[:, mb.W_ARG0].tolist() == [int(
+        (ring[c, :, mb.W_STATUS] >= mb.THREAD_WORK).sum()) for c in range(2)]
