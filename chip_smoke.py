@@ -16,7 +16,9 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    partials and their merge are one launch) from a ``torch.profiler`` pass;
    The SSD chunk kernel (K6) likewise, at the serve shape (a 17-token
    chunk), at B=1 S=2048 (8 chunks of 256) and at B=4 S=256, printing the
-   largest |want| beside the error;
+   largest |want| beside the error, its bound on its route (3xTF32 on the
+   tensor cores) with the FFMA bound beside it, and its device kernels a
+   call (one);
 4. serve: ``repro_torch.launch.serve.main`` on llama3-8b at full width
    (32 layers, d=4096, vocab 128256, bf16, random weights from the seed),
    4 requests x 8 new tokens, once with host prefill and once with chunked
@@ -32,7 +34,8 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    vocab 50280, tied, bf16): host prefill launches K6 once a layer a
    prompt, chunked prefill never; its decode step time at 4 slots; and one
    2048-token prompt (prefill + one decode step) through K6 and through
-   its plain version: logits within a stated tolerance, argmax equal;
+   its plain version: logits within a stated tolerance, argmax equal, and
+   K6's share of that prefill;
 5. tile kernels: the drain megakernel (K1), its flight-recorder variant
    (K2) and the legacy executor (K3) against their plain versions at
    C = 132 clusters (one worker per SM), Q = 64 rows, nbuf = 8 tiles, on a
@@ -467,14 +470,32 @@ def ssd_chunk_args(B, C, L, H, P, N, rng):
             Bm.reshape(B, C, L, N), Cm.reshape(B, C, L, N))
 
 
-def ssd_work(B, C, L, H, P, N) -> tuple[float, float]:
-    """(bytes, operations): each input read and each output written once;
-    the causal lower triangle of the intra-chunk product and G = C B^T once
-    per (b, c), plus the chunk-end states' (P x L)(L x N) per head."""
+def ssd_work(B, C, L, H, P, N) -> tuple[float, float, float]:
+    """(bytes, product operations, other f32 operations): each input read
+    and each output written once; the products are the causal lower
+    triangle of the intra-chunk product and G = C B^T once per (b, c), plus
+    the chunk-end states' (P x L)(L x N) per head; the rest is what the
+    kernel does outside them: W = G exp(cum_i - cum_j) dt_j per live (i, j,
+    h) (a subtraction, a scaling, the exponential, two products), the
+    states' B * w per (l, n, h) and w per (l, h), and one add of each
+    32-deep k-block's fresh sum per output element."""
     nbytes = 4.0 * (2 * B * C * L * H * P + 2 * B * C * L * H
                     + 2 * B * C * L * N + B * C * H * P * N)
     ops = 2.0 * B * C * (L * (L + 1) / 2 * (N + H * P) + H * L * P * N)
-    return nbytes, ops
+    kblocks = -(-L // 32)
+    f32_ops = B * C * (5.0 * L * (L + 1) / 2 * H + L * N * H + 4.0 * L * H
+                       + (L * H * P + H * P * N) * kblocks)
+    return nbytes, ops, f32_ops
+
+
+def ssd_bound(B, C, L, H, P, N) -> dict:
+    """K6's bound on its route — each product as three TF32 products
+    (3xTF32) at the tensor cores' rate, the rest at the f32 rate — with
+    the f32 FFMA bound (products and rest at the f32 rate) beside it."""
+    nbytes, ops, f32_ops = ssd_work(B, C, L, H, P, N)
+    ffma = bound(nbytes, ops + f32_ops, torch.float32)
+    route = bound(nbytes, {"tf32": 3 * ops, torch.float32: f32_ops})
+    return dict(route, ffma_bound_ms=ffma["bound_ms"])
 
 
 def ssd_case(name, B, C, L, H, P, N, rng) -> dict:
@@ -489,15 +510,18 @@ def ssd_case(name, B, C, L, H, P, N, rng) -> dict:
     ms = time_ms(lambda: ssd_chunk(*args))
     eager_ms = host_ms(lambda: ssd_chunk(*args))
     plain_ms = time_ms(lambda: ssd_chunk_plain(*args), iters=3)
+    per_call, names = kernels_per_call(lambda: ssd_chunk(*args))
     return dict(kernel="ssd_chunk", case=name, max_abs_err=err, scale=scale,
                 ok=ok, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                library_ms=None,
-                **bound(*ssd_work(B, C, L, H, P, N), torch.float32))
+                library_ms=None, device_kernels_per_call=per_call,
+                device_kernel_names=names,
+                **ssd_bound(B, C, L, H, P, N))
 
 
 def ssd_split_us(args, calls: int = 10) -> dict:
-    """Device time of K6's two kernels per call, from ``torch.profiler``:
-    {kernel name: us}; empty when the profiler records no device time."""
+    """Device time of K6's kernel (by instance) per call, from
+    ``torch.profiler``: {kernel name: us}; empty when the profiler records
+    no device time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -506,7 +530,7 @@ def ssd_split_us(args, calls: int = 10) -> dict:
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        m = re.search(r"ssd_(intra|state)_kernel(<\d+>)?", e.key)
+        m = re.search(r"ssd_chunk_kernel(<\d+>)?", e.key)
         if m and e.self_device_time_total > 0:
             out[m.group(0)] = e.self_device_time_total / calls
     return out
@@ -527,17 +551,23 @@ def ssd_checks() -> dict:
             f"max|want|={r['scale']:.3g} allclose(rtol=atol={SSD_TOL:.0e})="
             f"{r['ok']} kernel_ms={r['ms']:.4f} eager_call_ms="
             f"{r['eager_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-            f"library_ms=n/a bound_ms={r['bound_ms']:.5f} ({r['bound_by']}; "
-            f"bytes {r['bytes_ms']:.5f}, ops {r['ops_ms']:.5f})")
+            f"library_ms=n/a bound_ms={r['bound_ms']:.5f} ({r['bound_by']}, "
+            f"3xTF32 route; bytes {r['bytes_ms']:.5f}, ops {r['ops_ms']:.5f}) "
+            f"ffma_bound_ms={r['ffma_bound_ms']:.5f} device_kernels_per_call="
+            f"{r['device_kernels_per_call']} {r['device_kernel_names']}")
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise SystemExit(f"ssd_chunk disagrees with its plain version: {bad}")
+    many = [r["case"] for r in rows
+            if r["device_kernels_per_call"] not in (None, 1.0)]
+    if many:
+        raise SystemExit(f"ssd_chunk is not one launch a call: {many}")
     for r, shape in zip(rows, ((1, 1, 17), (1, 8, 256))):
         split = ssd_split_us(ssd_chunk_args(*shape, 48, 64, 128, rng))
         log(f"ssd_chunk {r['case']} device time by kernel (torch.profiler): "
             + (" ".join(f"{k}={v:.1f}us" for k, v in split.items())
                or "not measured (no device time recorded)"))
-    return {"serve": rows[0], "s2048": rows[1],
+    return {"serve": rows[0], "s2048": rows[1], "b4_s256": rows[2],
             "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
 
@@ -630,10 +660,12 @@ def llama_long_prompt_check(k5_ms: float) -> dict:
     return dict(r, k5_share=share)
 
 
-def ssm_long_prompt_check() -> dict:
+def ssm_long_prompt_check(k6_ms: float) -> dict:
     """mamba2-780m at full width: the 4-slot decode step time, then one
     2048-token prompt (prefill + one decode step) through K6 and through
-    its plain version on the same weights."""
+    its plain version on the same weights. K6's share of the prefill is its
+    launches times its device time at this shape (phase 3) over the
+    prefill's wall time."""
     cfg = get_config("mamba2-780m")
     model = build(cfg, device="cuda")
     plain = build(cfg, device="cuda", plain_kernels=True)
@@ -645,12 +677,15 @@ def ssm_long_prompt_check() -> dict:
     r = long_prompt_run(cfg, model, plain, params, ssd_chunk)
     errs, times, launches, same = (r["errs"], r["prefill_ms"],
                                    r["launches"], r["same"])
+    share = launches["kernel"] * k6_ms / times["kernel"]
     log(f"mamba2-780m {LONG_PROMPT}-token prompt, K6 vs plain SSD: prefill "
         f"max_abs_err={errs[0]:.3e} decode max_abs_err={errs[1]:.3e} "
         f"(|logits| max {r['scale']:.2f}, tol {SSM_LOGITS_ATOL}) argmax_equal="
         f"{same} prefill_ms kernel={times['kernel']:.2f} "
         f"plain={times['plain']:.2f} ssd_chunk launches kernel="
-        f"{launches['kernel']} plain={launches['plain']}")
+        f"{launches['kernel']} plain={launches['plain']} K6 share of the "
+        f"kernel-path prefill={share:.3f} ({launches['kernel']} x "
+        f"{k6_ms:.4f} ms)")
     if max(errs) > SSM_LOGITS_ATOL or not all(same) or \
             not all(math.isfinite(e) for e in errs):
         raise SystemExit("mamba2 K6-path logits disagree with the plain path")
@@ -659,7 +694,8 @@ def ssm_long_prompt_check() -> dict:
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(decode_step_ms=steps, prefill_ms=times, err=max(errs))
+    return dict(decode_step_ms=steps, prefill_ms=times, err=max(errs),
+                k6_share=share, launches=launches["kernel"])
 
 
 # ---------------------------------------------------------------------------
@@ -1224,14 +1260,19 @@ def main(argv=None) -> int:
     for src in _build.sources():
         logf = _build.library_path(src).with_name(
             _build.library_path(src).name + ".log")
-        fn = "?"
+        fn, injected = "?", 0
         for line in logf.read_text().splitlines() if logf.exists() else ():
             if "Compiling entry function" in line:
                 # the kernel's name and its mangled template arguments
                 m = re.search(r"([a-z_]+kernel)(I\w+?EE)?", line)
                 fn = "".join(g or "" for g in m.groups()) if m else "?"
+            elif "C7519" in line:         # a wgmma wait ptxas added
+                injected += 1
             elif "registers" in line or "spill stores" in line:
                 log(f"ptxas {src.stem} {fn}: {line.split(':', 1)[-1].strip()}")
+        if injected:
+            log(f"ptxas {src.stem}: {injected} warpgroup.arrive injected by "
+                f"the compiler around wgmma (C7519)")
 
     checks = kernel_checks()
     ssd = ssd_checks()
@@ -1253,7 +1294,7 @@ def main(argv=None) -> int:
             f"mamba2 serve: ssd_chunk launches {ssm_host['ssd_chunk']} on "
             f"host prefill (want {layers} layers x 4 prompts), "
             f"{ssm_chunked['ssd_chunk']} on chunked prefill (want 0)")
-    ssm_long = ssm_long_prompt_check()
+    ssm_long = ssm_long_prompt_check(ssd["s2048"]["ms"])
 
     tiles = tile_kernel_checks()
     paths = {}
@@ -1292,15 +1333,22 @@ def main(argv=None) -> int:
                 extra["long_prompt_k5_share"] = llama_long["k5_share"]
         elif name == "ssd_chunk":
             # launches on mamba2-780m's serve runs; times at the serve
-            # shape, the 2048-token shape beside them
+            # shape, the 2048-token and the B=4 S=256 shapes beside them
             row, launches = ssd["serve"], ssm_host[name]
             extra["launches_chunked_prefill"] = ssm_chunked[name]
             extra["shape"] = row["case"]
-            big = ssd["s2048"]
-            extra["at_" + big["case"]] = {
-                k: big[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms")}
+            extra["ffma_bound_ms"] = row["ffma_bound_ms"]
+            extra["eager_call_ms"] = row["eager_ms"]
+            extra["device_kernels_per_call"] = row["device_kernels_per_call"]
+            for big in (ssd["s2048"], ssd["b4_s256"]):
+                extra["at_" + big["case"]] = {
+                    k: big[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms",
+                                        "ffma_bound_ms", "eager_ms",
+                                        "device_kernels_per_call")}
+            extra["launches_long_prompt"] = ssm_long["launches"]
             extra["long_prompt_prefill_ms"] = ssm_long["prefill_ms"]
+            extra["long_prompt_k6_share"] = ssm_long["k6_share"]
             row = dict(row, max_abs_err=ssd["max_abs_err"])
         else:
             # times at the shape the path launches; the 132-cluster

@@ -3,10 +3,11 @@ PyTorch version.
 
 Port of ``repro.kernels.ssd_scan.kernel`` (``_ssd_chunk_kernel`` /
 ``ssd_chunk_pallas``): per (batch, chunk, head) the intra-chunk output and
-the chunk-end state. ``ssd_chunk`` launches the CUDA kernels in
-``csrc/ssd_scan.cu`` for CUDA tensors and uses ``ssd_chunk_plain`` for CPU
-tensors — the only case in which it does. On a CUDA tensor it launches the
-kernel or raises.
+the chunk-end state. ``ssd_chunk`` launches the CUDA kernel in
+``csrc/ssd_scan.cu`` (one launch computes both outputs, in 3xTF32 on the
+tensor cores) for CUDA tensors and uses ``ssd_chunk_plain`` for CPU tensors
+— the only case in which it does. On a CUDA tensor it launches the kernel
+or raises.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
-MAX_HEAD_DIM = 64        # P: one CTA covers 16 threads x 4 head channels
+MAX_HEAD_DIM = 64        # P: one 64-wide tensor-core tile of a head
+MAX_STATE_DIM = 224      # N: a CTA keeps 128 rows of C (N wide) resident
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -32,6 +34,12 @@ def library() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.k6_ssd_chunk_fwd.argtypes = [vp] * 7 + [ci] * 6 + [vp]
         lib.k6_ssd_chunk_fwd.restype = ci
+        lib.k6_request_smem.argtypes = [ci]
+        lib.k6_request_smem.restype = None
+        lib.k6_force_heads.argtypes = [ci]
+        lib.k6_force_heads.restype = None
+        lib.k6_heads_for.argtypes = [ci] * 5
+        lib.k6_heads_for.restype = ci
         lib.k6_error_string.argtypes = [ci]
         lib.k6_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -83,14 +91,17 @@ def _check(x, dt, cum, Bm, Cm) -> None:
     if P > MAX_HEAD_DIM:
         raise ValueError(f"head dim P={P} not supported (at most "
                          f"{MAX_HEAD_DIM})")
+    if Bm.shape[-1] > MAX_STATE_DIM:
+        raise ValueError(f"state dim N={Bm.shape[-1]} not supported (at most "
+                         f"{MAX_STATE_DIM})")
 
 
 def ssd_chunk(x, dt, cum, Bm, Cm):
     """x: (B,C,L,H,P) f32; dt/cum: (B,C,L,H); Bm/Cm: (B,C,L,N) ->
     (y_intra (B,C,L,H,P), states (B,C,H,P,N)). CUDA tensors launch the
-    Hopper kernels on the current stream (no synchronization); CPU tensors
+    Hopper kernel on the current stream (no synchronization); CPU tensors
     take the plain version. ``ssd_chunk.launches`` counts kernel launches
-    (one per call: the intra-chunk and the state kernel)."""
+    (one a call, one device kernel computing both outputs)."""
     if x.device.type == "cpu":
         return ssd_chunk_plain(x, dt, cum, Bm, Cm)
     _check(x, dt, cum, Bm, Cm)

@@ -30,14 +30,25 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 64, plain: bool = False):
     y_intra, Sc = (ssd_chunk_plain if plain else ssd_chunk)(
         *(t.contiguous() for t in args))
 
-    # inter-chunk recurrence: the state entering chunk c, for every c
-    st = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    st_in, st = _chunk_states_in(Sc, total)
+    y_inter = _y_inter(Cr, st_in, cum)
+    return (y_intra + y_inter).reshape(B, S, H, P), st
+
+
+def _chunk_states_in(Sc, total):
+    """The inter-chunk recurrence: the state entering chunk c, for every c
+    (B,C,H,P,N), and the final state (B,H,P,N). Sc: (B,C,H,P,N) chunk-end
+    states; total: (B,C,H) each chunk's summed log-decay."""
+    B, C = Sc.shape[:2]
+    st = torch.zeros_like(Sc[:, 0])
     st_in = []
     for c in range(C):
         st_in.append(st)
         st = st * torch.exp(total[:, c])[:, :, None, None] + Sc[:, c]
-    st_in = torch.stack(st_in, dim=1)                         # (B,C,H,P,N)
+    return torch.stack(st_in, dim=1), st
 
-    y_inter = torch.einsum("bcin,bchpn,bcih->bcihp", Cr, st_in,
-                           torch.exp(cum))
-    return (y_intra + y_inter).reshape(B, S, H, P), st
+
+def _y_inter(Cr, st_in, cum):
+    """Each position's read of the state entering its chunk, decayed to
+    the position: (B,C,L,H,P)."""
+    return torch.einsum("bcin,bchpn,bcih->bcihp", Cr, st_in, torch.exp(cum))

@@ -25,6 +25,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.ssd_scan import (ssd, ssd_chunk, ssd_chunk_plain,
                                           ssd_ref)
+from repro_torch.kernels.ssd_scan import kernel as SK
 
 BF16_ATOL = 2e-2
 
@@ -240,6 +241,9 @@ def test_kernel_wrappers_reject_what_they_cannot_take(cuda):
     x_wide = torch.zeros((1, 1, 8, 4, 128), device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         ssd_chunk(x_wide, *args[1:])
+    wide = torch.zeros((1, 1, 8, 512), device=cuda)
+    with pytest.raises(ValueError, match="state dim"):
+        ssd_chunk(*args[:3], wide, wide)
 
 
 def _ssd_inputs(seed, B, S, H, P, N):
@@ -255,25 +259,38 @@ def _ssd_inputs(seed, B, S, H, P, N):
         rng.normal(size=(B, S, N)).astype(f32))]
 
 
-def _ssd_chunk_args(seed, B, C, L, H, P, N):
+def _ssd_chunk_args(seed, B, C, L, H, P, N, scale=1.0, dt_max=None, A=None):
     """K6's operands as ``ssd`` forms them (cum: in-chunk cumsum of
-    dt * A)."""
-    x, dt, A, Bm, Cm = _ssd_inputs(seed, B, C * L, H, P, N)
-    cum = torch.cumsum((dt * A).reshape(B, C, L, H), dim=2)
+    dt * A); x, Bm and Cm times ``scale``; dt at ``dt_max`` and every A at
+    ``A`` where given (the strongest decays)."""
+    x, dt, A_, Bm, Cm = _ssd_inputs(seed, B, C * L, H, P, N)
+    if dt_max is not None:
+        dt = torch.full_like(dt, dt_max)
+    if A is not None:
+        A_ = torch.full_like(A_, A)
+    x, Bm, Cm = x * scale, Bm * scale, Cm * scale
+    cum = torch.cumsum((dt * A_).reshape(B, C, L, H), dim=2)
     return (x.reshape(B, C, L, H, P), dt.reshape(B, C, L, H), cum,
             Bm.reshape(B, C, L, N), Cm.reshape(B, C, L, N))
 
 
 GPU_SSD = [
     # (B, C, L, H, P, N): the serve shape (ragged L = 17); L = 256 with
-    # C > 1; head counts that are no multiple of the kernel's 8-head block,
-    # with a ragged state width and P < 64, on a grid small enough for one
-    # head a CTA and on one large enough for 8; a one-row chunk
+    # C > 1; head counts that are no multiple of the kernel's 4-head
+    # instance, with a ragged state width and P < 64, on a grid small enough
+    # for one head a CTA and on one large enough for 4; a one-row chunk;
+    # the 2048-token shape (8 chunks of 256, mamba2-780m's widths); an L
+    # that is no multiple of the 32-row stage or the 128-row block; a state
+    # width past one 128-row block, with N and P no multiple of 4 (the
+    # 4-byte copies)
     (1, 1, 17, 48, 64, 128),
     (1, 3, 256, 16, 64, 128),
     (2, 2, 40, 12, 32, 48),
     (4, 4, 256, 12, 32, 48),
     (3, 1, 1, 5, 16, 16),
+    (1, 8, 256, 48, 64, 128),
+    (2, 1, 200, 48, 64, 128),
+    (1, 2, 150, 6, 62, 202),
 ]
 
 
@@ -288,6 +305,116 @@ def test_ssd_chunk_kernel_matches_plain_on_card(cuda, B, C, L, H, P, N):
     want_y, want_s = ssd_chunk_plain(*args)
     torch.testing.assert_close(got_y, want_y, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(got_s, want_s, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["scaled100", "near_underflow"])
+@pytest.mark.parametrize("B,C,L,H,P,N", [(1, 2, 256, 8, 64, 128),
+                                         (1, 1, 17, 48, 64, 128)])
+def test_ssd_chunk_kernel_holds_its_split_on_card(cuda, case, B, C, L, H, P,
+                                                   N):
+    """x, B and C times 100 (the 3xTF32 split's accuracy is relative: y,
+    100^3 times larger, and the states, 100^2, are compared in the inputs'
+    units, divided by those factors), and decays near underflow (dt at
+    mamba2's dt_max 0.1, A = -8: exp(cum) reaches e^-205 over a 256-row
+    chunk), both within 1e-4 of the plain version."""
+    kw = dict(scale=100.0) if case == "scaled100" else dict(dt_max=0.1, A=-8.0)
+    unit_y, unit_s = (1e6, 1e4) if case == "scaled100" else (1.0, 1.0)
+    args = [t.to(cuda) for t in _ssd_chunk_args(11, B, C, L, H, P, N, **kw)]
+    got_y, got_s = ssd_chunk(*args)
+    torch.cuda.synchronize()
+    want_y, want_s = ssd_chunk_plain(*args)
+    assert bool(torch.isfinite(got_y).all() and torch.isfinite(got_s).all())
+    torch.testing.assert_close(got_y / unit_y, want_y / unit_y, atol=1e-4,
+                               rtol=1e-4)
+    torch.testing.assert_close(got_s / unit_s, want_s / unit_s, atol=1e-4,
+                               rtol=1e-4)
+
+
+def _device_kernels(fn, calls=5):
+    """Names of the device kernels ``calls`` eager ``fn`` calls launch
+    (``torch.profiler``); None where the profiler records no device
+    activity."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    return names or None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", [0, 1, 2, 4])
+@pytest.mark.parametrize("B,C,L,H,P,N", [(1, 1, 17, 48, 64, 128),
+                                         (1, 8, 256, 48, 64, 128),
+                                         (2, 1, 200, 7, 64, 128)])
+def test_ssd_chunk_is_one_device_kernel_a_call(cuda, monkeypatch, heads, B,
+                                                C, L, H, P, N):
+    """One call is one device kernel, for the instance the shape rule picks
+    (heads=0: the rule's own, 1 at the serve shape and 4 at S=2048) and
+    for each instance forced, all within 1e-4 of the plain version."""
+    lib = SK.library()
+    args = [t.to(cuda) for t in _ssd_chunk_args(3, B, C, L, H, P, N)]
+    rule = lib.k6_heads_for(B, C, L, H, N)
+    assert rule in (1, 2, 4)
+    if (B, C, L) == (1, 1, 17):
+        assert rule == 1
+    if (B, C, L) == (1, 8, 256):
+        assert rule == 4
+    lib.k6_force_heads(heads)
+    try:
+        names = _device_kernels(lambda: ssd_chunk(*args))
+        got = ssd_chunk(*args)
+        torch.cuda.synchronize()
+    finally:
+        lib.k6_force_heads(0)
+    if names is not None:
+        assert len(names) == 5, names
+        want = f"ssd_chunk_kernel<{heads or rule}>"
+        assert all(want in n for n in names), names
+    for g, w in zip(got, ssd_chunk_plain(*args)):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_ssd_launcher_raises_when_shared_memory_is_refused(cuda,
+                                                           monkeypatch):
+    """A shared-memory size the card refuses makes the wrapper raise and
+    launch nothing (no count, the outputs it allocated unwritten); the next
+    launch with the instance's own size runs."""
+    lib = SK.library()
+    args = [t.to(cuda) for t in _ssd_chunk_args(9, 1, 2, 64, 8, 64, 128)]
+    made = []
+
+    def full(fn):
+        def make(*a, **kw):
+            out = fn(*a, **kw).fill_(7.0)
+            made.append(out)
+            return out
+        return make
+
+    monkeypatch.setattr(SK.torch, "empty_like", full(torch.empty_like))
+    monkeypatch.setattr(SK.torch, "empty", full(torch.empty))
+    before = ssd_chunk.launches
+    lib.k6_request_smem(300_000)                  # > 227 KB a block
+    try:
+        with pytest.raises(RuntimeError, match="ssd_chunk"):
+            ssd_chunk(*args)
+    finally:
+        lib.k6_request_smem(0)
+    torch.cuda.synchronize()
+    assert ssd_chunk.launches == before
+    assert len(made) == 2 and all(bool((m == 7.0).all()) for m in made)
+    got = ssd_chunk(*args)
+    torch.cuda.synchronize()
+    assert ssd_chunk.launches == before + 1
+    assert got[0] is made[2] and got[1] is made[3]
+    for g, w in zip(got, ssd_chunk_plain(*args)):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.gpu

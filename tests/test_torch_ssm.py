@@ -3,8 +3,12 @@ interpret-mode Pallas, the chunked SSD against the sequential oracle, the
 mamba2 block (prefill and decode) and reduced mamba2-780m (4 layers, d=128,
 f32, the reference's parameters converted by ``params_from_jax``) against
 the reference's ``ssd_chunked`` model path. Inputs are made by numpy from a
-seed. Tolerance 1e-4 (f32; the two frameworks sum in different orders)."""
+seed. Tolerance 1e-4 (f32; the two frameworks sum in different orders).
+A numpy emulation of the Hopper K6 kernel's 3xTF32 arithmetic (its split,
+its k-steps and fresh accumulators) holds the split to the same 1e-4
+against the plain version at mamba2-780m's widths, before any card time."""
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -20,10 +24,12 @@ from repro.models import build as j_build
 from repro.models import ssm as j_ssm
 from repro_torch.configs import get_config
 from repro_torch.distributed import ShardCtx
+from repro_torch.kernels.ssd_scan import kernel as K6
 from repro_torch.kernels.ssd_scan import ssd, ssd_chunk_plain, ssd_ref
 from repro_torch.models import build, params_from_jax
 from repro_torch.models import ssm
 from repro_torch.models.layers import Init
+from test_torch_kernels_persistent import _split
 
 TOL = 1e-4
 
@@ -64,6 +70,109 @@ def test_chunk_plain_matches_pallas_interpret(B, S, chunk, H, P, N):
     got_y, got_s = ssd_chunk_plain(*map(torch.from_numpy, args))
     _close(got_y, want_y, "y_intra")
     _close(got_s, want_s, "states")
+
+
+# ---------------------------------------------------------------------------
+# 3xTF32, emulated: what the K6 kernel computes on the card
+# ---------------------------------------------------------------------------
+
+def _trunc32(v):
+    """f64 to f32 rounded toward zero: how the tensor cores sum."""
+    f = v.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(v)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def _mma(d, a, b):
+    """``mma.sync`` m16n8k8 tf32: d + a @ b over 8-deep k, every product
+    exact (tf32 x tf32 fits f32), the sum truncated to f32."""
+    return _trunc32(d.astype(np.float64) + a.astype(np.float64) @
+                    b.astype(np.float64))
+
+
+def _product_3xtf32(A, B, kblock):
+    """A @ B as the kernel forms it: every operand split into tf32 big and
+    small halves; per ``kblock``-deep k-block a fresh accumulator takes,
+    for each 8-deep step, a_small b_big, a_big b_small and a_big b_big in
+    that order (a_small b_small dropped), then is added to the running sum
+    in f32 (kblock = K: one accumulator, every sum truncated)."""
+    ab, as_, _ = _split(A)
+    bb, bs, _ = _split(B)
+    acc = np.zeros((A.shape[0], B.shape[1]), np.float32)
+    for k0 in range(0, A.shape[1], kblock):
+        p = np.zeros_like(acc)
+        for k in range(k0, min(k0 + kblock, A.shape[1]), 8):
+            s = slice(k, k + 8)
+            p = _mma(p, as_[:, s], bb[s])
+            p = _mma(p, ab[:, s], bs[s])
+            p = _mma(p, ab[:, s], bb[s])
+        acc = acc + p
+    return acc
+
+
+def _ssd_chunk_3xtf32(x, dt, cum, Bm, Cm):
+    """The K6 kernel's arithmetic in numpy (f32 where the kernel is f32):
+    G = C B^T over N (mma.sync); W = G * exp(cum_i - cum_j) * dt_j (j > i
+    zero) and y = W x, and the states' (B * w)^T x, w = dt * exp(cum_end -
+    cum), over 32-column stages (wgmma); every product in 32-deep k-blocks
+    with fresh accumulators."""
+    Bsz, C, L, H, P = x.shape
+    N = Bm.shape[-1]
+    y = np.zeros_like(x)
+    states = np.zeros((Bsz, C, H, P, N), np.float32)
+    causal = np.tril(np.ones((L, L), bool))
+    for b in range(Bsz):
+        for c in range(C):
+            G = _product_3xtf32(Cm[b, c], Bm[b, c].T, 32)
+            for h in range(H):
+                cu, d = cum[b, c, :, h], dt[b, c, :, h]
+                dec = np.exp(np.where(causal, cu[:, None] - cu[None, :],
+                                      np.float32(0)))
+                W = np.where(causal, G * dec * d[None, :], np.float32(0))
+                y[b, c, :, h] = _product_3xtf32(W.astype(np.float32),
+                                                x[b, c, :, h], 32)
+                w = d * np.exp(cu[-1] - cu)
+                A = (Bm[b, c] * w[:, None]).T
+                states[b, c, h] = _product_3xtf32(A, x[b, c, :, h], 32).T
+    return y, states
+
+
+@pytest.mark.parametrize("case", ["mamba2_width", "scaled100",
+                                  "near_underflow"])
+def test_chunk_3xtf32_emulation_meets_plain_contract(case):
+    """The kernel's split, k-steps and fresh accumulators stay within 1e-4
+    of ``ssd_chunk_plain`` at mamba2-780m's widths (L=256, N=128, P=64;
+    two heads, two chunks); with x, B and C times 100 (the split's accuracy
+    is relative: the outputs, 100^3 (y) and 100^2 (states) times larger, are
+    compared in the inputs' units, divided by those factors); with decays
+    near underflow (dt at dt_max 0.1, A = -8)."""
+    B, C, L, H, P, N = 1, 2, 256, 2, 64, 128
+    x, dt, A, Bm, Cm = ssd_inputs(B, C * L, H, P, N, seed=5)
+    unit_y = unit_s = np.float32(1)
+    if case == "scaled100":
+        x, Bm, Cm = (a * np.float32(100) for a in (x, Bm, Cm))
+        unit_y, unit_s = np.float32(1e6), np.float32(1e4)
+    if case == "near_underflow":
+        dt = np.full_like(dt, 0.1)
+        A = np.full_like(A, -8.0)
+    cum = np.cumsum((dt * A).reshape(B, C, L, H), axis=2, dtype=np.float32)
+    args = (x.reshape(B, C, L, H, P), dt.reshape(B, C, L, H), cum,
+            Bm.reshape(B, C, L, N), Cm.reshape(B, C, L, N))
+    got_y, got_s = _ssd_chunk_3xtf32(*args)
+    want_y, want_s = ssd_chunk_plain(*map(torch.from_numpy, args))
+    assert np.isfinite(got_y).all() and np.isfinite(got_s).all()
+    _close(got_y / unit_y, want_y.numpy() / unit_y, "y_intra")
+    _close(got_s / unit_s, want_s.numpy() / unit_s, "states")
+
+
+def test_chunk_kernel_limits_equal_wrapper():
+    """The shapes the wrapper lets through are the ones the CUDA launcher
+    takes: its head-dim and state-width limits equal the source's."""
+    src = K6.SOURCE.read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert int(consts["PMAX"]) == K6.MAX_HEAD_DIM
+    assert int(consts["NMAX"]) == K6.MAX_STATE_DIM
 
 
 @pytest.mark.parametrize("S,chunk", [(11, 32), (64, 16), (96, 32)])
