@@ -18,7 +18,15 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    chunk), at B=1 S=2048 (8 chunks of 256) and at B=4 S=256, printing the
    largest |want| beside the error, its bound on its route (3xTF32 on the
    tensor cores) with the FFMA bound beside it, and its device kernels a
-   call (one);
+   call (one). K4 and K5 also at gemma2-2b's shapes (D=256, GQA 8/4,
+   softcap 50, window 4096): a 17-token prompt, the 4-slot decode, the
+   4608-token prompt (windowed and global layers) and its decode step. At
+   a softcap row q is scaled so the scores reach the cap, and the row
+   fails unless dropping the softcap moves the plain output by well over
+   the tolerance; its library call, ``flex_attention`` with the softcap
+   (checked against the plain version too; SDPA's time without the
+   softcap beside it), is compiled and timed after phase 9, because the
+   profiler drops device events once it has compiled;
 4. serve: ``repro_torch.launch.serve.main`` on llama3-8b at full width
    (32 layers, d=4096, vocab 128256, bf16, random weights from the seed),
    4 requests x 8 new tokens, once with host prefill and once with chunked
@@ -36,6 +44,26 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    2048-token prompt (prefill + one decode step) through K6 and through
    its plain version: logits within a stated tolerance, argmax equal, and
    K6's share of that prefill;
+4c. streams: ``serve --streams --elastic --metrics-file --trace`` on
+   llama3-8b at full width, 8 streams (every 4th HIGH) over 4 slots, once
+   with host prefill (under one ``torch.profiler`` pass) and once with
+   chunked prefill: per-class TTFT and response p50/p99/worst with every
+   sample beside them (a handful of streams a class), the stream
+   and monitor counters, the registry's utilization (the share of wall
+   time from a step's trigger to its readback: a host-window share) beside
+   the profiler's device-busy share; fails unless closed == opened, zero
+   bound violations, ``met == n``, K5 launched with host prefill only, K4
+   on both, the metrics files written with device chunks, ``top --once``
+   reads them, and each stream's tokens equal ``generate``'s on the same
+   weights. Then ``launch.trace`` on the card passes its two checks;
+4d. gemma2-2b at full width (26 layers, d=2304, D=256, vocab 256000) served
+   with host and chunked prefill, its 17-token logits against the plain
+   path (argmax equal), one 4608-token prompt past its 4096 window through
+   K5 and the plain attention; beside each, controls (the plain path with
+   the softcap removed, a window of 8, the window removed), of which the
+   mask faults must move the logits by more than the tolerance;
+   mistral-nemo-12b (40 layers, d=5120) served with host prefill and its
+   logits against the plain path (its top-two margin printed);
 5. tile kernels: the drain megakernel (K1), its flight-recorder variant
    (K2) and the legacy executor (K3) against their plain versions at
    C = 132 clusters (one worker per SM), Q = 64 rows, nbuf = 8 tiles, on a
@@ -64,7 +92,8 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    violations, device spans = drained rows = chunks submitted;
 9. a preemption probe: a HIGH arrival's first trigger lands between the
    chunk retirements of an 8-chunk LOW item under ``MegaRuntime``;
-10. a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name/power-limit
+10. the softcap rows' library call (``flex_attention``, phase 3) timed;
+   a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name/power-limit
    line, and last ``{"ok": true, "device": {...}}``.
 
 Kernel launch counters are zeroed just before each path's run and read just
@@ -76,6 +105,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -109,7 +139,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_chunk, ssd_chunk_plain)
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import serve, top, trace  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.system import LkSystem  # noqa: E402
 
@@ -120,13 +150,24 @@ HBM_BYTES_PER_S = 3.35e12
 N_SMS = 132
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
 ATOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}   # summation order
-LOGITS_ATOL = 0.25    # kernel vs plain attention through 32 bf16 layers
+# softcap rows: q times this, so the scaled scores (about N(0, 20^2)) reach
+# the cap of 50; dropping the softcap must then move the plain output by
+# more than SOFTCAP_WITNESS tolerances
+SOFTCAP_Q_SCALE, SOFTCAP_WITNESS = 20.0, 10
+# kernel vs plain attention, bf16 rounding through the layers: set from
+# llama3-8b's 32 layers (0.17-0.19); gemma2-2b reads 0.07-0.09 and
+# mistral-nemo-12b's 40 layers 0.18-0.23. gemma2-2b's controls (the plain
+# path with a window of 8, or without its window past 4096 tokens) must
+# differ by more, so the tolerance sees a mask fault of that size
+LOGITS_ATOL = 0.25
 SSD_TOL = 1e-4        # K6 vs plain, rtol and atol: f32 sums in another order
 # kernel vs plain SSD through 48 bf16 layers: the f32 sums differ in the
 # last bits, which flips an occasional bf16 rounding of y (one ulp, 2^-8
 # relative) that the next layers carry on
 SSM_LOGITS_ATOL = 0.25
 LONG_PROMPT = 2048
+GEMMA_LONG = 4608     # past gemma2-2b's 4096 local window
+GEMMA_WINDOW, GEMMA_SOFTCAP = 4096, 50.0
 TILE_TOL = 1e-4      # rtol and atol: f32 sums in another order
 TILE_C, TILE_Q, TILE_NBUF = 132, 64, 8   # one worker per SM of the H100
 DEVICE = torch.device("cuda")
@@ -264,13 +305,74 @@ def _sdpa_gqa(q, k, v, **kw):
     return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
 
 
+def softcap_library_times(rows: list) -> None:
+    """The library call at each softcap row (SDPA has no softcap):
+    ``flex_attention`` with a ``softcap * tanh(s / softcap)`` score_mod,
+    the row's mask as a block mask and GQA, compiled once a row in this
+    process (no compile workers) and warmed before it is timed; held to
+    the plain version at the row's tolerance. Run after every
+    ``torch.profiler`` pass of the smoke: once it has compiled, the
+    profiler's passes drop device events. The port never calls it."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    torch._inductor.config.compile_threads = 1
+    torch._dynamo.config.recompile_limit = 64   # each row its own mask
+    flex = torch.compile(flex_attention, dynamic=False)
+    for r in rows:
+        if "flex" not in r:
+            continue
+        qt, kt, vt, softcap, mask_mod, B, Lq, Lkv, want = r.pop("flex")
+
+        def score_mod(score, b, h, q_idx, kv_idx):
+            return softcap * torch.tanh(score / softcap)
+        block_mask = create_block_mask(mask_mod, B, None, Lq, Lkv,
+                                       device="cuda")
+
+        def call():
+            return flex(qt, kt, vt, score_mod=score_mod,
+                        block_mask=block_mask, enable_gqa=True)
+        got = call().transpose(1, 2)
+        torch.cuda.synchronize()
+        r["library_err"] = float((got.float() - want.float()).abs().max())
+        r["library_ms"] = time_ms(call)
+        log(f"library {r['kernel']:16s} {r['case']:34s} flex_attention with "
+            f"the softcap: ms={r['library_ms']:.4f} max_abs_err="
+            f"{r['library_err']:.3e} tol={r['tol']:.0e} (kernel_ms "
+            f"{r['ms']:.4f}; sdpa without the softcap "
+            f"{r['sdpa_without_softcap_ms']:.4f})")
+    bad = [r["case"] for r in rows if r["library_err"] is not None and
+           not r["library_err"] <= r["tol"]]
+    if bad:
+        raise SystemExit(f"flex_attention does not compute the softcap "
+                         f"function at {bad}")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernel vs plain
 # ---------------------------------------------------------------------------
 
+def _softcap_q(q, softcap):
+    """q scaled by SOFTCAP_Q_SCALE where a softcap is asked for, so that the
+    scores reach the cap."""
+    return (q.float() * SOFTCAP_Q_SCALE).to(q.dtype) if softcap else q
+
+
+def softcap_witness(plain, args, kw, tol) -> float:
+    """How far the plain version's output moves when the softcap is
+    dropped: the row can fail a kernel that drops it only if this is well
+    over the tolerance."""
+    effect = float((plain(*args, **kw).float() - plain(
+        *args, **dict(kw, attn_softcap=0.0)).float()).abs().max())
+    if not effect > SOFTCAP_WITNESS * tol:
+        raise SystemExit(f"softcap row: dropping the softcap moves the plain "
+                         f"output by {effect:.3e}, not over "
+                         f"{SOFTCAP_WITNESS} x {tol}")
+    return effect
+
+
 def flash_case(name, B, S, dtype, gen, causal=True, window=0, softcap=0.0,
                Hq=32, Hkv=8, D=128) -> dict:
-    q = _randn((B, S, Hq, D), dtype, gen)
+    q = _softcap_q(_randn((B, S, Hq, D), dtype, gen), softcap)
     k = _randn((B, S, Hkv, D), dtype, gen)
     v = _randn((B, S, Hkv, D), dtype, gen)
     kw = dict(causal=causal, window=window, attn_softcap=softcap)
@@ -278,35 +380,47 @@ def flash_case(name, B, S, dtype, gen, causal=True, window=0, softcap=0.0,
     want = flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
+    effect = softcap_witness(flash_attention_plain, (q, k, v), kw,
+                             ATOL[dtype]) if softcap else None
     ms = time_ms(lambda: flash_attention(q, k, v, **kw))
     eager_ms = host_ms(lambda: flash_attention(q, k, v, **kw))
     plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, **kw), iters=5)
-    lib_ms = None
-    if softcap == 0.0:
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        mask = None
-        if window:
-            qp = torch.arange(S, device="cuda")[:, None]
-            kp = torch.arange(S, device="cuda")[None, :]
-            mask = (kp <= qp) & (qp - kp < window)
-        sdpa_kw = dict(attn_mask=mask) if mask is not None else \
-            dict(is_causal=causal)
-        lib_ms = time_ms(lambda: _sdpa_gqa(qt, kt, vt, **sdpa_kw))
+    # the library call: SDPA, or at a softcap shape (SDPA has none)
+    # flex_attention with the softcap, SDPA without it beside it
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = None
+    if window:
+        qp = torch.arange(S, device="cuda")[:, None]
+        kp = torch.arange(S, device="cuda")[None, :]
+        mask = (kp <= qp) & (qp - kp < window)
+    sdpa_kw = dict(attn_mask=mask) if mask is not None else \
+        dict(is_causal=causal)
+    sdpa_ms = time_ms(lambda: _sdpa_gqa(qt, kt, vt, **sdpa_kw))
+    flex = {}
+    if softcap:
+        def mask_mod(b, h, q_idx, kv_idx):
+            live = kv_idx <= q_idx if causal else kv_idx >= 0
+            return live & (q_idx - kv_idx < window) if window else live
+        flex["flex"] = (qt, kt, vt, softcap, mask_mod, None, S, S, want)
     # useful (q, k) pairs of this mask, each 4*D operations per head
     qpos = np.arange(S)
     hi = qpos if causal else np.full(S, S - 1)
     lo = np.maximum(0, qpos - window + 1) if window else np.zeros(S, int)
     pairs = float(np.maximum(hi - lo + 1, 0).sum())
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    # at a softcap row library_ms and library_err are set at the end of
+    # the run (softcap_library_times)
     return dict(kernel="flash_attention", case=name, max_abs_err=err,
                 tol=ATOL[dtype], ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                library_ms=lib_ms,
-                **bound(nbytes, 4.0 * D * Hq * B * pairs, dtype))
+                library_ms=None if softcap else sdpa_ms, library_err=None,
+                softcap_effect=effect,
+                sdpa_without_softcap_ms=sdpa_ms if softcap else None,
+                **flex, **bound(nbytes, 4.0 * D * Hq * B * pairs, dtype))
 
 
 def decode_case(name, B, S, valid, dtype, gen, window=0, softcap=0.0,
                 Hq=32, Hkv=8, D=128) -> dict:
-    q = _randn((B, 1, Hq, D), dtype, gen)
+    q = _softcap_q(_randn((B, 1, Hq, D), dtype, gen), softcap)
     k = _randn((B, S, Hkv, D), dtype, gen)
     v = _randn((B, S, Hkv, D), dtype, gen)
     vl = torch.tensor(valid, dtype=torch.int32, device="cuda")
@@ -315,6 +429,8 @@ def decode_case(name, B, S, valid, dtype, gen, window=0, softcap=0.0,
     want = decode_attention_plain(q, k, v, vl, **kw)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
+    effect = softcap_witness(decode_attention_plain, (q, k, v, vl), kw,
+                             ATOL[dtype]) if softcap else None
     ms = time_ms(lambda: decode_attention(q, k, v, vl, **kw))
     eager_ms = host_ms(lambda: decode_attention(q, k, v, vl, **kw))
     plain_ms = time_ms(lambda: decode_attention_plain(q, k, v, vl, **kw),
@@ -327,19 +443,26 @@ def decode_case(name, B, S, valid, dtype, gen, window=0, softcap=0.0,
     live = pos < vl[:, None]
     if window:
         live &= pos >= (vl[:, None] - window)
-    lib_ms = None
-    if softcap == 0.0:
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        mask = live[:, None, None, :]
-        lib_ms = time_ms(lambda: _sdpa_gqa(qt, kt, vt, attn_mask=mask))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = live[:, None, None, :]
+    sdpa_ms = time_ms(lambda: _sdpa_gqa(qt, kt, vt, attn_mask=mask))
+    flex = {}
+    if softcap:
+        def mask_mod(b, h, q_idx, kv_idx):
+            live = kv_idx < vl[b]
+            return live & (kv_idx >= vl[b] - window) if window else live
+        flex["flex"] = (qt, kt, vt, softcap, mask_mod, B, 1, S, want)
     rows = float(live.sum())          # live cache rows this data needs
     nbytes = (2 * q.numel() + 2 * rows * Hkv * D) * q.element_size() + \
         vl.numel() * 4
     return dict(kernel="decode_attention", case=name, max_abs_err=err,
                 tol=ATOL[dtype], ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                library_ms=lib_ms, device_kernels_per_call=per_call,
+                library_ms=None if softcap else sdpa_ms, library_err=None,
+                softcap_effect=effect,
+                sdpa_without_softcap_ms=sdpa_ms if softcap else None,
+                device_kernels_per_call=per_call,
                 device_kernel_names=names,
-                wrapper_launches_per_call=wrapper_per_call,
+                wrapper_launches_per_call=wrapper_per_call, **flex,
                 **bound(nbytes, 4.0 * D * Hq * rows, dtype))
 
 
@@ -363,13 +486,38 @@ def kernel_checks() -> dict:
         decode_case("B4_S4096_window1024_bf16", 4, 4096,
                     [4096, 2048, 1000, 300], bf16, gen, window=1024),
     ]
+    # gemma2-2b's shapes: D=256, GQA 8/4, attention softcap 50, its local
+    # layers' 4096 window (a global layer has none): a 17-token prompt,
+    # the 4-slot decode over the 128-position cache, the long prompt past
+    # the window and its decode step
+    gemma = dict(Hq=8, Hkv=4, D=256, softcap=GEMMA_SOFTCAP)
+    rows += [
+        flash_case("gemma_B1_S17_window4096_softcap50_D256_bf16", 1, 17,
+                   bf16, gen, window=GEMMA_WINDOW, **gemma),
+        decode_case("gemma_B4_S128_ragged_softcap50_D256_bf16", 4, 128,
+                    [128, 1, 77, 64], bf16, gen, window=GEMMA_WINDOW,
+                    **gemma),
+        flash_case(f"gemma_B1_S{GEMMA_LONG}_window4096_softcap50_D256_bf16",
+                   1, GEMMA_LONG, bf16, gen, window=GEMMA_WINDOW, **gemma),
+        flash_case(f"gemma_B1_S{GEMMA_LONG}_causal_softcap50_D256_bf16", 1,
+                   GEMMA_LONG, bf16, gen, **gemma),
+        decode_case(f"gemma_B1_S{GEMMA_LONG + 1}_window4096_softcap50_D256_"
+                    f"bf16", 1, GEMMA_LONG + 1, [GEMMA_LONG + 1], bf16, gen,
+                    window=GEMMA_WINDOW, **gemma),
+    ]
     for r in rows:
-        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        if r["softcap_effect"] is None:
+            lib = f"sdpa_ms={r['library_ms']:.4f}"
+        else:
+            lib = (f"flex_attention_ms=at the end (sdpa without the softcap "
+                   f"{r['sdpa_without_softcap_ms']:.4f}) q x{SOFTCAP_Q_SCALE:g}"
+                   f", dropping the softcap moves the plain output by "
+                   f"{r['softcap_effect']:.3e}")
         log(f"check {r['kernel']:16s} {r['case']:34s} "
             f"max_abs_err={r['max_abs_err']:.3e} tol={r['tol']:.0e} "
             f"kernel_ms={r['ms']:.4f} eager_call_ms={r['eager_ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} "
-            f"sdpa_ms={lib} bound_ms={r['bound_ms']:.5f} ({r['bound_by']}; "
+            f"{lib} bound_ms={r['bound_ms']:.5f} ({r['bound_by']}; "
             f"bytes {r['bytes_ms']:.5f}, ops {r['ops_ms']:.5f})")
         if r["kernel"] == "decode_attention":
             log(f"kernels_per_call decode_attention {r['case']}: "
@@ -386,7 +534,8 @@ def kernel_checks() -> dict:
     # the main path's shapes: a 17-token prompt (serve draws 4..23) and a
     # 4-slot decode over the 128-position cache
     return {"flash_attention": rows[0], "decode_attention": rows[5],
-            "s2048": rows[2], "cases": rows}
+            "s2048": rows[2], "cases": rows,
+            "gemma": rows[8:]}
 
 
 # ---------------------------------------------------------------------------
@@ -418,37 +567,85 @@ def serve_run(arch: str, label: str, extra: list) -> dict:
     return launches
 
 
-def logits_check() -> float:
-    cfg = get_config("llama3-8b")
+def top2_margin(logits) -> list:
+    """The gap between the two largest logits of each row."""
+    top = torch.topk(logits.float().reshape(-1, logits.shape[-1]), 2).values
+    return [float(t[0] - t[1]) for t in top]
+
+
+def controls_check(arch: str, out: dict, witness: str | None) -> dict:
+    """Each control's largest logits difference from the plain path, the
+    control being the plain path with its attention changed (``out``
+    holds each run's logits). The ``witness`` control must differ by more
+    than LOGITS_ATOL: the tolerance then fails an attention fault of that
+    size."""
+    ctrl = {name: max(float((a - b).abs().max())
+                      for a, b in zip(logits, out["plain"]))
+            for name, logits in out.items() if name not in ("kernel", "plain")}
+    if ctrl:
+        log(f"logits[{arch}] controls, plain path with its attention changed, "
+            f"max_abs_err from the plain path: "
+            f"{ {k: round(v, 4) for k, v in ctrl.items()} } (tol "
+            f"{LOGITS_ATOL})")
+    if witness is not None and not ctrl[witness] > LOGITS_ATOL:
+        raise SystemExit(f"{arch}: the {witness} control moves the logits by "
+                         f"{ctrl[witness]:.3e}, within the tolerance")
+    return ctrl
+
+
+def logits_check(arch: str = "llama3-8b", need_argmax: bool = False,
+                 controls: dict | None = None,
+                 witness: str | None = None) -> dict:
+    """One 17-token prefill and one decode step of ``arch`` at full width
+    through the kernel path and the plain path on the same weights; both
+    paths decode the kernel path's next token. Logits within LOGITS_ATOL;
+    with ``need_argmax`` both steps' argmax equal too (the plain path's
+    top-two margins are printed beside it). Each of ``controls`` ({name:
+    config fields}) runs the plain path with those fields replaced; see
+    ``controls_check``."""
+    cfg = get_config(arch)
     model = build(cfg, device="cuda")
     plain = build(cfg, device="cuda", plain_kernels=True)
     params = model.init(0)
     rng = np.random.default_rng(0)
     prompt = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (1, 17)).astype(np.int32)).cuda()
-    out = {}
-    for name, m in (("kernel", model), ("plain", plain)):
+    runs = [("kernel", model), ("plain", plain)] + [
+        (name, build(dataclasses.replace(cfg, **kw), device="cuda",
+                     plain_kernels=True))
+        for name, kw in (controls or {}).items()]
+    out, nxt = {}, None
+    for name, m in runs:
         logits0, caches = m.prefill(params, {"tokens": prompt}, 128)
-        nxt = torch.argmax(logits0[:, -1], dim=-1).to(torch.int32)[:, None]
+        if nxt is None:
+            nxt = torch.argmax(logits0[:, -1], dim=-1).to(torch.int32)[:, None]
         logits1, _ = m.decode_step(params, caches, nxt,
                                    torch.tensor([17], dtype=torch.int32,
                                                 device="cuda"))
         out[name] = (logits0.float(), logits1.float())
+        del caches
     torch.cuda.synchronize()
     errs = [float((a - b).abs().max())
             for a, b in zip(out["kernel"], out["plain"])]
     scale = float(out["plain"][0].abs().max())
     same = [bool((a.argmax(-1) == b.argmax(-1)).all())
             for a, b in zip(out["kernel"], out["plain"])]
-    log(f"logits kernel vs plain attention: prefill max_abs_err={errs[0]:.3e} "
-        f"decode max_abs_err={errs[1]:.3e} (|logits| max {scale:.2f}, "
-        f"tol {LOGITS_ATOL}) argmax_equal={same}")
+    margins = [top2_margin(b)[0] for b in out["plain"]]
+    log(f"logits[{arch}] kernel vs plain attention: prefill max_abs_err="
+        f"{errs[0]:.3e} decode max_abs_err={errs[1]:.3e} (|logits| max "
+        f"{scale:.2f}, tol {LOGITS_ATOL}) argmax_equal={same} plain top-two "
+        f"margins={[round(m, 4) for m in margins]}")
     if max(errs) > LOGITS_ATOL or not all(math.isfinite(e) for e in errs):
-        raise SystemExit("kernel-path logits disagree with the plain path")
-    del params, out
+        raise SystemExit(f"{arch}: kernel-path logits disagree with the "
+                         f"plain path")
+    if need_argmax and not all(same):
+        raise SystemExit(f"{arch}: kernel-path argmax differs from the plain "
+                         f"path's (top-two margins {margins})")
+    ctrl = controls_check(arch, out, witness)
+    del params, out, model, plain, runs
     gc.collect()
     torch.cuda.empty_cache()
-    return max(errs)
+    return dict(errs=errs, same=same, margins=margins, controls=ctrl)
 
 
 # ---------------------------------------------------------------------------
@@ -593,31 +790,32 @@ def ssm_decode_step_ms(model, params, steps: int = 10) -> list:
     return out
 
 
-def long_prompt_run(cfg, model, plain, params, wrapper) -> dict:
-    """One LONG_PROMPT-token prompt (prefill + one decode step) through the
-    kernel path and through the plain path on the same weights: last
-    position's logits of both steps, warm prefill wall times, and the
-    kernel's launches in each timed prefill."""
+def long_prompt_run(cfg, model, plain, params, wrapper,
+                    length: int = LONG_PROMPT, controls=()) -> dict:
+    """One ``length``-token prompt (prefill + one decode step) through the
+    kernel path and through the plain path on the same weights (and
+    through each of ``controls``, (name, model) pairs): last position's
+    logits of both steps, warm prefill wall times, and the kernel's
+    launches in each timed prefill."""
     rng = np.random.default_rng(0)
     prompt = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (1, LONG_PROMPT)).astype(np.int32)).to(DEVICE)
+        0, cfg.vocab_size, (1, length)).astype(np.int32)).to(DEVICE)
     # one next token for both paths: with random weights the top logits
     # nearly tie, and each path's own argmax may differ
     nxt = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (1, 1)).astype(np.int32)).to(DEVICE)
     out, times, launches = {}, {}, {}
-    for name, m in (("kernel", model), ("plain", plain)):
-        m.prefill(params, {"tokens": prompt}, LONG_PROMPT + 1)   # warm-up
+    for name, m in (("kernel", model), ("plain", plain), *controls):
+        m.prefill(params, {"tokens": prompt}, length + 1)   # warm-up
         zero_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits0, caches = m.prefill(params, {"tokens": prompt},
-                                    LONG_PROMPT + 1)
+        logits0, caches = m.prefill(params, {"tokens": prompt}, length + 1)
         torch.cuda.synchronize()
         times[name] = (time.perf_counter() - t0) * 1e3
         launches[name] = wrapper.launches
         logits1, _ = m.decode_step(params, caches, nxt, torch.tensor(
-            [LONG_PROMPT], dtype=torch.int32, device=DEVICE))
+            [length], dtype=torch.int32, device=DEVICE))
         out[name] = (logits0.float(), logits1.float())
         del caches
     torch.cuda.synchronize()
@@ -626,38 +824,45 @@ def long_prompt_run(cfg, model, plain, params, wrapper) -> dict:
     same = [bool((a.argmax(-1) == b.argmax(-1)).all())
             for a, b in zip(out["kernel"], out["plain"])]
     return dict(errs=errs, same=same, scale=float(out["plain"][0].abs().max()),
-                prefill_ms=times, launches=launches)
+                prefill_ms=times, launches=launches, out=out)
 
 
-def llama_long_prompt_check(k5_ms: float) -> dict:
-    """llama3-8b at full width: one 2048-token prompt through K5 and
-    through the plain attention on the same weights. K5's share of the
-    prefill is its launches times its device time at this shape (phase 3)
-    over the prefill's wall time."""
-    cfg = get_config("llama3-8b")
+def attn_long_prompt_check(arch: str, length: int, k5_ms: float,
+                           controls: dict | None = None,
+                           witness: str | None = None) -> dict:
+    """``arch`` at full width: one ``length``-token prompt through K5 and
+    through the plain attention on the same weights (and through the plain
+    path with each of ``controls``' config fields replaced; see
+    ``controls_check``). K5's share of the prefill is ``k5_ms`` (its
+    device time summed over the layers at this shape, phase 3) over the
+    prefill's wall time."""
+    cfg = get_config(arch)
     model = build(cfg, device="cuda")
     plain = build(cfg, device="cuda", plain_kernels=True)
     params = model.init(0)
-    r = long_prompt_run(cfg, model, plain, params, flash_attention)
+    r = long_prompt_run(cfg, model, plain, params, flash_attention, length,
+                        [(name, build(dataclasses.replace(cfg, **kw),
+                                      device="cuda", plain_kernels=True))
+                         for name, kw in (controls or {}).items()])
     errs, t, n = r["errs"], r["prefill_ms"], r["launches"]
-    share = n["kernel"] * k5_ms / t["kernel"]
-    log(f"llama3-8b {LONG_PROMPT}-token prompt, K5 vs plain attention: "
+    share = k5_ms / t["kernel"]
+    log(f"{arch} {length}-token prompt, K5 vs plain attention: "
         f"prefill max_abs_err={errs[0]:.3e} decode max_abs_err={errs[1]:.3e} "
         f"(|logits| max {r['scale']:.2f}, tol {LOGITS_ATOL}) argmax_equal="
         f"{r['same']} prefill_ms kernel={t['kernel']:.2f} "
         f"plain={t['plain']:.2f} flash_attention launches kernel="
         f"{n['kernel']} plain={n['plain']} K5 share of the kernel-path "
-        f"prefill={share:.3f} ({n['kernel']} x {k5_ms:.4f} ms)")
+        f"prefill={share:.3f} ({k5_ms:.4f} ms over {n['kernel']} launches)")
     if max(errs) > LOGITS_ATOL or not all(math.isfinite(e) for e in errs):
-        raise SystemExit("llama3-8b long prompt: K5-path logits disagree "
-                         "with the plain path")
+        raise SystemExit(f"{arch} long prompt: K5-path logits disagree "
+                         f"with the plain path")
     if n["kernel"] != cfg.num_layers or n["plain"] != 0:
-        raise SystemExit(f"llama3-8b long prompt: flash_attention launches "
-                         f"{n}")
+        raise SystemExit(f"{arch} long prompt: flash_attention launches {n}")
+    ctrl = controls_check(f"{arch} {length}-token", r.pop("out"), witness)
     del params, model, plain
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(r, k5_share=share)
+    return dict(r, k5_share=share, controls=ctrl)
 
 
 def ssm_long_prompt_check(k6_ms: float) -> dict:
@@ -696,6 +901,226 @@ def ssm_long_prompt_check(k6_ms: float) -> dict:
     torch.cuda.empty_cache()
     return dict(decode_step_ms=steps, prefill_ms=times, err=max(errs),
                 k6_share=share, launches=launches["kernel"])
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the stream frontend at full width (HIGH under LOW)
+# ---------------------------------------------------------------------------
+
+STREAM_ARGS = ["--arch", "llama3-8b", "--requests", "8", "--max-new", "8",
+               "--max-batch", "4", "--max-seq", "128", "--seed", "0"]
+OUT = ROOT / "build" / "chip_smoke"       # metrics and traces of this run
+
+
+def busy_share(prof, first_kernel: str) -> tuple[float, float]:
+    """(device busy ms, its share of the window) from a ``torch.profiler``
+    pass: the union of every device interval from the first kernel whose
+    name holds ``first_kernel`` to the last interval's end."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type.name == "CUDA"
+                   and e.time_range.end > e.time_range.start)
+    starts = [e.time_range.start for e in prof.events()
+              if e.device_type.name == "CUDA" and first_kernel in e.name]
+    if not spans or not starts:
+        raise SystemExit("torch.profiler recorded no device time")
+    t0 = min(starts)
+    t1 = max(e for _, e in spans)
+    busy, end = 0.0, t0
+    for a, b in spans:
+        a = max(a, end)
+        if b > a:
+            busy += b - a
+            end = b
+    return busy / 1e3, busy / (t1 - t0)
+
+
+def stream_samples(trace_path: Path) -> dict:
+    """Every TTFT and response the stream frontend recorded, exact, as
+    {(class, "ttft"|"response"): [(request id, ms), ...]}, read from the
+    chrome trace ``serve --trace`` wrote (a re-admitted stream records a
+    TTFT each time it is admitted, as the histogram does)."""
+    out = {}
+    for ev in json.loads(trace_path.read_text())["traceEvents"]:
+        args = ev.get("args", {})
+        for key in ("ttft_us", "response_us"):
+            if key in args:
+                out.setdefault((ev["name"].split(":", 1)[1], key[:-3]),
+                               []).append((args["request_id"],
+                                           round(args[key] / 1e3, 1)))
+    return out
+
+
+def token_identity(label: str, streams: list, extra: list) -> None:
+    """A stream's tokens equal ``engine.generate``'s for the same prompts
+    on the same weights (serve without --streams). At the first difference
+    the position and the top-two margin of the kernel path's logits there
+    are printed, and the run fails."""
+    gen = serve.main(STREAM_ARGS + extra).outputs
+    reap_deferred()
+    gc.collect()
+    torch.cuda.empty_cache()
+    diff = [(i, next(j for j, (a, b) in enumerate(zip(s_, g)) if a != b))
+            for i, (s_, g) in enumerate(zip(streams, gen)) if s_ != g]
+    log(f"streams[{label}] tokens equal generate's: {not diff} "
+        f"({len(streams)} streams)")
+    if not diff:
+        return
+    cfg = get_config("llama3-8b")
+    model = build(cfg, device="cuda")
+    params = model.init(0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, rng.integers(4, 24))
+               for _ in range(len(streams))]
+    for i, j in diff:
+        seq = np.concatenate([prompts[i], np.asarray(gen[i][:j])])
+        logits, _ = model.prefill(params, {"tokens": torch.from_numpy(
+            seq.astype(np.int32))[None].cuda()}, 128)
+        log(f"streams[{label}] stream {i} differs at new token {j}: "
+            f"stream {streams[i][j]} generate {gen[i][j]}, top-two margin "
+            f"{top2_margin(logits[:, -1])[0]:.4f}")
+    raise SystemExit(f"streams[{label}]: tokens differ from generate's")
+
+
+def streams_run(label: str, extra: list, profiled: bool) -> dict:
+    """``serve --streams`` on llama3-8b at full width, 8 streams (every 4th
+    HIGH) over 4 slots, elastic advisory controller, metrics pump and
+    trace on; launch counters zeroed just before and read just after; with
+    ``profiled`` under one ``torch.profiler`` pass (device activity)."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    mfile = OUT / f"streams_{label}.jsonl"
+    tfile = OUT / f"streams_{label}.trace.json"
+    for f in (mfile, mfile.with_name(mfile.name + ".prom")):
+        f.unlink(missing_ok=True)
+    from torch.profiler import ProfilerActivity, profile
+    zero_launches()
+    t0 = time.perf_counter()
+    with (profile(activities=[ProfilerActivity.CUDA]) if profiled
+          else contextlib.nullcontext()) as prof:
+        report = serve.main(STREAM_ARGS + [
+            "--streams", "--high-every", "4", "--elastic",
+            "--metrics-file", str(mfile),
+            "--trace", str(tfile)] + extra)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    reap_deferred()
+    gc.collect()
+    torch.cuda.empty_cache()
+    st, mc, ds, met = (report.streams, report.monitor,
+                       report.deadline_stats, report.metrics)
+    log(f"streams[{label}] wall={wall:.1f}s launches={launches} "
+        f"opened={st['opened']} shed={st['shed']} readmitted="
+        f"{st['readmitted']} closed={st['closed']} evictions="
+        f"{st['evictions']} n={ds['n']} met={ds['met']} monitor={mc}")
+    # a handful of streams a class: the log-bucket p99 of so few is not a
+    # tail, so every sample is printed beside the summary
+    samples = stream_samples(tfile)
+    for metric, summ in (("ttft", report.stream_ttft_us),
+                         ("response", report.stream_response_us)):
+        for cls in ("stream_high", "stream_low"):
+            q = summ[cls]
+            log(f"streams[{label}] {cls} {metric}_ms n={q['count']} "
+                f"p50={q['p50_us'] / 1e3:.2f} p99={q['p99_us'] / 1e3:.2f} "
+                f"worst={q['worst_us'] / 1e3:.2f} samples (request id, ms) "
+                f"{sorted(samples[cls, metric], key=lambda x: x[1])}")
+    util = met["utilization"]
+    dev = ""
+    if profiled:
+        busy_ms, share = busy_share(prof, "decode_")
+        dev = (f"; device-busy share (torch.profiler, first K4 launch to "
+               f"the end) {share:.3f} ({busy_ms:.1f} ms busy)")
+    # the histogram's summary keys say _us; the values are percent
+    dist = {c: dict(n=q["count"], avg=round(q["avg_us"], 2),
+                    p50=round(q["p50_us"], 2), worst=round(q["worst_us"], 2))
+            for c, q in met["utilization_pct"].items()}
+    log(f"streams[{label}] metrics samples={met['samples']} device_chunks="
+        f"{met['device_chunks']:.0f} host-window share (trigger to readback, "
+        f"the registry's cluster_utilization) at the last sample {util}, "
+        f"over every 0.25 s sample in percent {dist}{dev}; elastic "
+        f"{report.elastic}")
+    bad = []
+    if st["closed"] != st["opened"]:
+        bad.append("closed != opened")
+    if mc["bound_violations"]:
+        bad.append(f"bound_violations={mc['bound_violations']}")
+    if ds["met"] != ds["n"]:
+        bad.append(f"met={ds['met']} != n={ds['n']}")
+    if any(len(o) != 8 for o in report.outputs):
+        bad.append("a stream did not complete")
+    if not met["device_chunks"] > 0 or not mfile.stat().st_size or \
+            not mfile.with_name(mfile.name + ".prom").stat().st_size:
+        bad.append("metrics files or device chunks missing")
+    if top.main(["--once", "--file", str(mfile)]) != 0:
+        bad.append("top --once failed")
+    if bad:
+        raise SystemExit(f"streams[{label}]: {bad}")
+    token_identity(label, report.outputs, extra)
+    return dict(launches=launches, streams=st, monitor=mc, samples=samples,
+                ttft=report.stream_ttft_us, response=report.stream_response_us,
+                utilization=util, utilization_pct=met["utilization_pct"],
+                wall_s=wall)
+
+
+def streams_phase(chunked_args: list) -> dict:
+    host = streams_run("host_prefill", [], profiled=True)
+    chunked = streams_run("chunked_prefill", chunked_args, profiled=False)
+    if not host["launches"]["flash_attention"] or \
+            chunked["launches"]["flash_attention"] or \
+            not host["launches"]["decode_attention"] or \
+            not chunked["launches"]["decode_attention"]:
+        raise SystemExit(f"streams: K5/K4 launches host "
+                         f"{host['launches']} chunked {chunked['launches']}")
+    rc = trace.main(["--out", str(OUT / "trace_cli.json")])
+    log(f"trace CLI on the card: rc={rc}")
+    if rc != 0:
+        raise SystemExit("trace CLI failed its checks on the card")
+    return dict(host=host, chunked=chunked)
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: gemma2-2b and mistral-nemo-12b at full width
+# ---------------------------------------------------------------------------
+
+def dense_configs_phase(chunked_args: list, gemma_rows: list) -> dict:
+    """gemma2-2b (D=256, GQA 8/4, window 4096, softcaps) served with host
+    and chunked prefill, its logits against the plain path, one
+    GEMMA_LONG-token prompt past the window; mistral-nemo-12b served with
+    host prefill and its logits against the plain path. Each model is
+    freed before the next."""
+    g = get_config("gemma2-2b")
+    host = serve_run("gemma2-2b", "host_prefill", [])
+    chunked = serve_run("gemma2-2b", "chunked_prefill", chunked_args)
+    if host["flash_attention"] != g.num_layers * 4 or \
+            chunked["flash_attention"] or not host["decode_attention"] or \
+            not chunked["decode_attention"]:
+        raise SystemExit(f"gemma2-2b serve: launches host {host} chunked "
+                         f"{chunked}")
+    # controls: the plain path without the attention softcap, and with a
+    # window of 8 on the local layers (a mask fault the tolerance must see)
+    g_logits = logits_check(
+        "gemma2-2b", need_argmax=True, witness="window8",
+        controls={"softcap_removed": dict(attn_softcap=0.0),
+                  "window8": dict(local_window=8)})
+    by_case = {r["case"]: r for r in gemma_rows}
+    half = g.num_layers // 2       # local and global layers alternate
+    k5_ms = half * (
+        by_case[f"gemma_B1_S{GEMMA_LONG}_window4096_softcap50_D256_bf16"]
+        ["ms"] +
+        by_case[f"gemma_B1_S{GEMMA_LONG}_causal_softcap50_D256_bf16"]["ms"])
+    # control: the plain path without the 4096 window (the tolerance must
+    # see it past the window)
+    g_long = attn_long_prompt_check(
+        "gemma2-2b", GEMMA_LONG, k5_ms, witness="window_removed",
+        controls={"window_removed": dict(local_window=0)})
+    mistral = serve_run("mistral-nemo-12b", "host_prefill", [])
+    if not mistral["flash_attention"] or not mistral["decode_attention"]:
+        raise SystemExit(f"mistral-nemo-12b serve: launches {mistral}")
+    # argmax equality is not asked of mistral-nemo-12b: its plain top-two
+    # margin (0.031 at the prefill) is far inside the tolerance
+    m_logits = logits_check("mistral-nemo-12b")
+    return dict(gemma_host=host, gemma_chunked=chunked, gemma_logits=g_logits,
+                gemma_long=g_long, mistral_host=mistral,
+                mistral_logits=m_logits)
 
 
 # ---------------------------------------------------------------------------
@@ -1285,7 +1710,11 @@ def main(argv=None) -> int:
     if missing:
         raise SystemExit(f"main path never launched: {missing}")
     logits_check()
-    llama_long = llama_long_prompt_check(checks["s2048"]["ms"])
+    llama_long = attn_long_prompt_check(
+        "llama3-8b", LONG_PROMPT,
+        get_config("llama3-8b").num_layers * checks["s2048"]["ms"])
+    streams = streams_phase(chunked_args)
+    dense = dense_configs_phase(chunked_args, checks["gemma"])
     ssm_host = serve_run("mamba2-780m", "host_prefill", [])
     ssm_chunked = serve_run("mamba2-780m", "chunked_prefill", chunked_args)
     layers = get_config("mamba2-780m").num_layers
@@ -1306,6 +1735,7 @@ def main(argv=None) -> int:
     missing = [n for n in TILE_KERNELS if paths[n][n] == 0]
     if missing:
         raise SystemExit(f"tile path never launched: {missing}")
+    softcap_library_times(checks["cases"])
 
     kernels = []
     for name, spec in KERNELS.items():
@@ -1314,6 +1744,23 @@ def main(argv=None) -> int:
             row, launches = checks[name], host[name]
             extra["launches_chunked_prefill"] = chunked[name]
             extra["eager_call_ms"] = row["eager_ms"]
+            for run in ("host", "chunked"):
+                extra[f"launches_streams_{run}_prefill"] = \
+                    streams[run]["launches"][name]
+            for key, run in (("gemma_host", "gemma2_2b_host_prefill"),
+                             ("gemma_chunked", "gemma2_2b_chunked_prefill"),
+                             ("mistral_host",
+                              "mistral_nemo_12b_host_prefill")):
+                extra["launches_" + run] = dense[key][name]
+            for big in checks["gemma"]:
+                if big["kernel"] == name:
+                    extra["at_" + big["case"]] = {
+                        k: big[k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms",
+                                            "library_err",
+                                            "sdpa_without_softcap_ms",
+                                            "softcap_effect",
+                                            "max_abs_err")}
             if name == "decode_attention":
                 extra["device_kernels_per_call"] = \
                     row["device_kernels_per_call"]
@@ -1331,6 +1778,11 @@ def main(argv=None) -> int:
                     llama_long["launches"]["kernel"]
                 extra["long_prompt_prefill_ms"] = llama_long["prefill_ms"]
                 extra["long_prompt_k5_share"] = llama_long["k5_share"]
+                g_long = dense["gemma_long"]
+                extra["gemma2_2b_long_prompt"] = dict(
+                    tokens=GEMMA_LONG, launches=g_long["launches"]["kernel"],
+                    prefill_ms=g_long["prefill_ms"],
+                    k5_share=g_long["k5_share"])
         elif name == "ssd_chunk":
             # launches on mamba2-780m's serve runs; times at the serve
             # shape, the 2048-token and the B=4 S=256 shapes beside them

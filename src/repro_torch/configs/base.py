@@ -1,6 +1,7 @@
 """Model / run configuration system — the PyTorch port's copy of
 ``repro.configs.base``. The registry loads only the configs whose model
-family has been ported (llama3-8b, mamba2-780m).
+family has been ported: the dense configs (llama3-8b, gemma2-2b,
+mistral-nemo-12b, qwen2-72b) and mamba2-780m.
 
 Every assigned architecture is a ``ModelConfig`` registered under its public id.
 ``ModelConfig.reduced()`` derives a small same-family config for CPU smoke tests;
@@ -282,7 +283,9 @@ def _ensure_loaded() -> None:
     if _LOADED:
         return
     # only the configs whose model family has been ported register here
-    from repro_torch.configs import llama3_8b, mamba2_780m  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        gemma2_2b, llama3_8b, mamba2_780m, mistral_nemo_12b, qwen2_72b,
+    )
     _LOADED = True
 
 

@@ -1,7 +1,6 @@
 """Contention-aware elastic partitioning: the ElasticController — the port
-of ``repro.core.elastic`` (host logic only; the reference's
-``bind_metrics`` utilization feed comes with ``metrics.py`` in a later
-slice).
+of ``repro.core.elastic`` (host logic only, the reference's code with the
+port's imports).
 
 The carve is no longer fixed at boot. This controller closes the loop
 the real-time partitioning literature (Zahaf et al.'s contention-aware
@@ -127,6 +126,8 @@ class ElasticController:
         self._agree = 0
         self._last_attempt_us: Optional[int] = None
         self._last_tick_us: Optional[int] = None
+        self._metrics = None                   # bind_metrics registry
+        self.last_utilization: dict[str, float] = {}
         self.ticks = 0
         self.proposals = 0                     # survived hysteresis
         self.applied = 0
@@ -157,6 +158,37 @@ class ElasticController:
         self._advisory = True
         self._register_telemetry()
         return self
+
+    def bind_metrics(self, registry) -> "ElasticController":
+        """Advisory utilization feed: consume the metrics registry's
+        per-cluster utilization gauges (sampled from the flight
+        recorder's device-stamped chunk spans) ALONGSIDE backlog demand.
+        Each tick scales class k's demand by ``1 + util_k`` where
+        ``util_k`` is the mean device utilization of the clusters
+        currently pinned to k — a class whose clusters are measurably
+        saturated argues for capacity beyond what its queue length alone
+        shows, and an idle class cannot hold clusters on backlog noise.
+        Purely a bias on the proposal signal: the admission veto still
+        gates every carve."""
+        self._metrics = registry
+        return self
+
+    def _utilization_bias(self, demand: dict) -> dict:
+        """Scale per-class demand by measured cluster utilization (see
+        ``bind_metrics``); records ``last_utilization`` per class."""
+        util = self._metrics.utilization()
+        if not util:
+            return demand
+        pins = self._dispatcher.pins()
+        live = set(self._active_clusters())
+        out = dict(demand)
+        for name in out:
+            members = [c for c in pins.get(name, ()) if c in live]
+            vals = [util[c] for c in members if c in util]
+            u = sum(vals) / len(vals) if vals else 0.0
+            self.last_utilization[name] = u
+            out[name] *= 1.0 + u
+        return out
 
     def _register_telemetry(self) -> None:
         t = self._dispatcher.telemetry
@@ -273,6 +305,8 @@ class ElasticController:
         self._last_tick_us = now
         self.ticks += 1
         demand = self.demand_us()
+        if self._metrics is not None:
+            demand = self._utilization_bias(demand)
         proposal = self._propose(demand)
         if proposal is None or proposal == self.current_shares():
             self._pending, self._agree = None, 0

@@ -1,4 +1,8 @@
 from repro_torch.kernels.decode_attention.kernel import (
     decode_attention, decode_attention_plain)
 
-__all__ = ["decode_attention", "decode_attention_plain"]
+# the reference's name for its oracle; here it is the plain version
+decode_attention_ref = decode_attention_plain
+
+__all__ = ["decode_attention", "decode_attention_plain",
+           "decode_attention_ref"]

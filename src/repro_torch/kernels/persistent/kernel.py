@@ -195,6 +195,30 @@ def execute_plain(queue, ws):
     return ws, fromgpu
 
 
+def persistent_drain_ref(ctrl, queue, workspace, carry):
+    """The reference's K1 oracle under its name: ``drain_plain`` on copies
+    of ``workspace`` and ``carry``, which are left as they were."""
+    return drain_plain(*_copies(ctrl, queue, workspace, carry))
+
+
+def persistent_drain_prof_ref(ctrl, queue, workspace, carry, tick):
+    """The reference's K2 oracle under its name: ``drain_plain`` with a
+    tick, on copies; ``tick`` is required, as there."""
+    return drain_plain(*_copies(ctrl, queue, workspace, carry, tick))
+
+
+def persistent_execute_ref(queue, workspace):
+    """The reference's K3 oracle under its name: ``execute_plain`` on a
+    copy of ``workspace``."""
+    return execute_plain(*_copies(queue, workspace))
+
+
+def _copies(*arrays):
+    """Fresh tensors of arrays or tensors (i32 queues and control words,
+    f32 workspaces and carries), as the reference's oracles copy theirs."""
+    return [torch.as_tensor(a).clone() for a in arrays]
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------

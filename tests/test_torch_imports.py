@@ -17,6 +17,7 @@ import repro.core.telemetry as j_tel
 import repro.kernels.persistent.kernel as j_pk
 import repro.kernels.persistent.ops as j_pops
 import repro.serving.engine as j_engine
+import repro.serving.streams as j_streams
 import repro_torch
 import repro_torch.core.mailbox as t_mb
 import repro_torch.core.sched as t_sched
@@ -24,6 +25,7 @@ import repro_torch.core.telemetry as t_tel
 import repro_torch.kernels.persistent.kernel as t_pk
 import repro_torch.kernels.persistent.ops as t_pops
 import repro_torch.serving.engine as t_engine
+import repro_torch.serving.streams as t_streams
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -35,7 +37,10 @@ def _modules():
 
 def test_port_imports_neither_jax_nor_reference():
     mods = _modules()
-    for m in ("serving.engine", "kernels.flash_attention.kernel",
+    for m in ("serving.engine", "serving.streams", "launch.trace",
+              "launch.top", "core.telemetry.metrics",
+              "configs.gemma2_2b", "configs.mistral_nemo_12b",
+              "configs.qwen2_72b", "kernels.flash_attention.kernel",
               "kernels.persistent.kernel", "kernels.persistent.ops",
               "core.mega", "core.clusters", "core.elastic", "core.system",
               "system", "kernels.ssd_scan.kernel", "kernels.ssd_scan.ops",
@@ -56,14 +61,15 @@ def test_port_imports_neither_jax_nor_reference():
 
 def _upper_constants(mod):
     return {k: v for k, v in vars(mod).items()
-            if k.isupper() and isinstance(v, (int, float, str, tuple))}
+            if k.isupper() and not k.startswith("_")
+            and isinstance(v, (int, float, str, tuple))}
 
 
 @pytest.mark.parametrize("ref,port", [
     (j_mb, t_mb), (j_sched, t_sched), (j_tel, t_tel), (j_engine, t_engine),
-    (j_pk, t_pk), (j_pops, t_pops),
+    (j_pk, t_pk), (j_pops, t_pops), (j_streams, t_streams),
 ], ids=["mailbox", "sched", "telemetry", "engine", "persistent_kernel",
-        "persistent_ops"])
+        "persistent_ops", "streams"])
 def test_copied_constants_equal_reference(ref, port):
     want = _upper_constants(ref)
     got = _upper_constants(port)
@@ -73,6 +79,12 @@ def test_copied_constants_equal_reference(ref, port):
         assert {"TILE", "OP_REDUCE", "NUM_DRAIN_OPS", "SCALE_SHIFT"} <= set(got)
     if ref is j_pops:
         assert got["TILE_OP_NAMES"] == want["TILE_OP_NAMES"]
+    if ref is j_streams:
+        assert {"STREAM_ID_BASE", "PROMISE_ID_BASE", "OP_STREAM_HIGH",
+                "OP_STREAM_LOW", "ST_PENDING", "ST_CLOSED"} <= set(got)
+        # the stream work classes: the same fields in the port's WorkClass
+        assert [vars(w) for w in port._STREAM_CLASSES] == \
+            [vars(w) for w in ref._STREAM_CLASSES]
 
 
 def test_protocol_constants_spelled_out():
@@ -98,7 +110,7 @@ def test_entry_points_raise_without_cuda():
     from repro_torch.core.persistent import (PersistentRuntime,
                                              TraditionalRuntime)
     from repro_torch.kernels.persistent import tile_state
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, trace
     from repro_torch.models import build
     from repro_torch.system import LkSystem
     cfg = get_config("llama3-8b").reduced()
@@ -116,6 +128,10 @@ def test_entry_points_raise_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "mamba2-780m", "--reduced", "--requests", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--smoke", "--streams"])        # --smoke keeps cuda
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trace.main(["--smoke", "--out", os.devnull])
+    with pytest.raises(RuntimeError, match="CUDA"):
         MegaRuntime()
     with pytest.raises(RuntimeError, match="CUDA"):
         TraditionalRuntime([], result_template=torch.zeros(1))
@@ -131,3 +147,29 @@ def test_entry_points_raise_without_cuda():
                     work_classes=mega_work_classes(), runtime="mega")
     with pytest.raises(RuntimeError, match="CUDA"):
         sys_.boot()
+
+
+# The reference's __init__ files define no __all__ (repro.core.telemetry
+# aside): their public names are the names they import. The port must
+# offer each, except the TPU entry point and what the roadmap still queues.
+NOT_PORTED = {"persistent_drain_pallas",      # the Pallas TPU launch
+              "make_cluster_mesh"}            # the distribution slice
+
+
+@pytest.mark.parametrize("name", [
+    "repro.core", "repro.core.telemetry", "repro.serving",
+    "repro.kernels.decode_attention", "repro.kernels.flash_attention",
+    "repro.kernels.persistent", "repro.kernels.ssd_scan",
+])
+def test_reference_public_names_importable_from_port(name):
+    import importlib
+    import types
+    ref = importlib.import_module(name)
+    port = importlib.import_module("repro_torch" + name[len("repro"):])
+    public = getattr(ref, "__all__", None) or [
+        k for k, v in vars(ref).items()
+        if not k.startswith("_") and k != "annotations"
+        and not (isinstance(v, types.ModuleType)
+                 and v.__name__.startswith(name + "."))]
+    missing = sorted(set(public) - NOT_PORTED - set(vars(port)))
+    assert not missing, missing

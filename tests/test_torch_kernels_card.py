@@ -42,6 +42,23 @@ def _t(*arrays):
     return [torch.from_numpy(a) for a in arrays]
 
 
+# softcap cases: q times this, so the scaled scores (about N(0, 20^2)) reach
+# the cap; dropping the softcap must move the plain output by more than ten
+# tolerances, so the case fails a kernel that drops it
+SOFTCAP_Q_SCALE = 20.0
+
+
+def _capped(q, kw):
+    return q * SOFTCAP_Q_SCALE if kw.get("attn_softcap") else q
+
+
+def _assert_softcap_matters(plain, args, kw, atol):
+    if kw.get("attn_softcap"):
+        moved = (plain(*args, **kw).float() - plain(
+            *args, **dict(kw, attn_softcap=0.0)).float()).abs().max()
+        assert float(moved) > 10 * atol
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -84,7 +101,8 @@ GPU_FLASH = [
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,Hq,Hkv,D,dtype,kw", GPU_FLASH)
 def test_flash_kernel_matches_plain_on_card(cuda, B, S, Hq, Hkv, D, dtype, kw):
-    q, k, v = [t.to(cuda, dtype) for t in _t(*_qkv(5, B, S, Hq, Hkv, D))]
+    q, k, v = _qkv(5, B, S, Hq, Hkv, D)
+    q, k, v = [t.to(cuda, dtype) for t in _t(_capped(q, kw), k, v)]
     before = flash_attention.launches
     got = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -92,6 +110,7 @@ def test_flash_kernel_matches_plain_on_card(cuda, B, S, Hq, Hkv, D, dtype, kw):
     want = flash_attention_plain(q, k, v, **kw)
     atol = BF16_ATOL if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    _assert_softcap_matters(flash_attention_plain, (q, k, v), kw, atol)
 
 
 @pytest.mark.gpu
@@ -146,6 +165,11 @@ GPU_DECODE = [
     (4, 4096, 32, 8, 128, torch.bfloat16, RAGGED, dict(window=1000)),
     (2, 1001, 32, 8, 128, torch.float32, [1001, 333],
      dict(window=100, attn_softcap=30.0)),
+    # gemma2-2b's bf16 decode: D=256, GQA 8/4, softcap 50, window 4096
+    (4, 128, 8, 4, 256, torch.bfloat16, [128, 1, 77, 64],
+     dict(window=4096, attn_softcap=50.0)),
+    (1, 4609, 8, 4, 256, torch.bfloat16, [4609],
+     dict(window=4096, attn_softcap=50.0)),
 ]
 
 
@@ -153,8 +177,8 @@ GPU_DECODE = [
 @pytest.mark.parametrize("B,S,Hq,Hkv,D,dtype,valid,kw", GPU_DECODE)
 def test_decode_kernel_matches_plain_on_card(cuda, B, S, Hq, Hkv, D, dtype,
                                              valid, kw):
-    q, k, v = [t.to(cuda, dtype)
-               for t in _t(*_qkv(6, B, S, Hq, Hkv, D, Sq=1))]
+    q, k, v = _qkv(6, B, S, Hq, Hkv, D, Sq=1)
+    q, k, v = [t.to(cuda, dtype) for t in _t(_capped(q, kw), k, v)]
     vl = torch.tensor(valid, dtype=torch.int32, device=cuda)
     before = decode_attention.launches
     got = decode_attention(q, k, v, vl, **kw)
@@ -163,6 +187,7 @@ def test_decode_kernel_matches_plain_on_card(cuda, B, S, Hq, Hkv, D, dtype,
     want = decode_attention_plain(q, k, v, vl, **kw)
     atol = BF16_ATOL if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    _assert_softcap_matters(decode_attention_plain, (q, k, v, vl), kw, atol)
 
 
 @pytest.mark.gpu

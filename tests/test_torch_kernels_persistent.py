@@ -148,6 +148,33 @@ def test_drain_bare_plain_matches_bare_kernel():
     assert_drain_equal([t.numpy() for t in got], ref)
 
 
+def test_reference_oracle_names_copy_their_inputs():
+    """The reference's oracle names give its oracles' results and, as
+    there, leave the workspace, carry and tick they were given unchanged;
+    K2's oracle requires its tick."""
+    ring, ctrl, ws = _queue([MIXED, MIXED[::-1]]), \
+        _ctrl([(0, 7, 0), (1, 6, 0)]), _ws(2)
+    carry = np.array([[0.5], [-0.25]], np.float32)
+    tick = np.array([[3], [0]], np.int32)
+    args = _torch(ctrl, ring, ws, carry, tick)
+    before = [a.clone() for a in args]
+    got = P.persistent_drain_prof_ref(*args)
+    assert_drain_equal([t.numpy() for t in got], [
+        np.asarray(x) for x in J.persistent_drain_prof_ref(
+            ctrl, ring, ws, carry, tick)])
+    got = P.persistent_drain_ref(*args[:4])
+    assert_drain_equal([t.numpy() for t in got], [
+        np.asarray(x) for x in J.persistent_drain_ref(ctrl, ring, ws, carry)])
+    with pytest.raises(TypeError):
+        P.persistent_drain_prof_ref(*args[:4])
+    ws_out, fromgpu = P.persistent_execute_ref(args[1], args[2])
+    ref = J.persistent_execute_ref(ring, ws)
+    np.testing.assert_allclose(ws_out.numpy(), np.asarray(ref[0]), **TOL)
+    np.testing.assert_array_equal(fromgpu.numpy(), np.asarray(ref[1]))
+    for a, b in zip(args, before):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("seed", [3, 4, 5])
 def test_drain_random_programs_with_aliasing(seed):
     """Random opcode/arg/chunk mixes with dst, a and b drawn from 0..3 (so
