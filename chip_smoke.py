@@ -64,6 +64,23 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    mask faults must move the logits by more than the tolerance;
    mistral-nemo-12b (40 layers, d=5120) served with host prefill and its
    logits against the plain path (its top-two margin printed);
+4e. zamba2-7b at full width (81 mamba2 layers of 112 heads x 64, state
+   64; one shared attention+MLP block, 32/32 heads x 112, applied 13
+   times; vocab 32000, bf16) served with host prefill (K5 13 x 4 prompts,
+   K6 81 x 4) and chunked prefill (neither), its 17-token logits against
+   the plain path (tolerance 0.5, the largest |logits| beside it), its
+   4-slot decode step's host time beside its device time
+   (``torch.profiler``), one 2048-token prompt through K5 (13 launches)
+   and K6 (81) against the plain path with the kernels' share of the
+   prefill; whisper-tiny at full width (4+4 layers, d=384, 6/6 heads x 64,
+   1500 stub frames a request from the seed) served with host prefill and
+   with ``--chunked-prefill`` (requests with frames take the host prefill:
+   K5 12 x 4 on both runs), its logits against the plain path. Their
+   kernel rows (phase 3c, after phase 3b): K5 at D=112 (S=17 and 2048,
+   causal), at whisper's encoder (S=1500, non-causal) and cross shapes (17
+   queries against 1500 keys); K4 at D=112 (the 4-slot serve shape, 128
+   clusters) and over whisper's 1500 frames (its decode cross-attention's
+   route); K6 at 112 heads, N=64 (S=17 and 2048);
 5. tile kernels: the drain megakernel (K1), its flight-recorder variant
    (K2) and the legacy executor (K3) against their plain versions at
    C = 132 clusters (one worker per SM), Q = 64 rows, nbuf = 8 tiles, on a
@@ -371,10 +388,13 @@ def softcap_witness(plain, args, kw, tol) -> float:
 
 
 def flash_case(name, B, S, dtype, gen, causal=True, window=0, softcap=0.0,
-               Hq=32, Hkv=8, D=128) -> dict:
+               Hq=32, Hkv=8, D=128, Skv=None) -> dict:
+    """``Skv``: a key length other than the query length S (non-causal,
+    no window: cross-attention)."""
+    Skv = Skv or S
     q = _softcap_q(_randn((B, S, Hq, D), dtype, gen), softcap)
-    k = _randn((B, S, Hkv, D), dtype, gen)
-    v = _randn((B, S, Hkv, D), dtype, gen)
+    k = _randn((B, Skv, Hkv, D), dtype, gen)
+    v = _randn((B, Skv, Hkv, D), dtype, gen)
     kw = dict(causal=causal, window=window, attn_softcap=softcap)
     got = flash_attention(q, k, v, **kw)
     want = flash_attention_plain(q, k, v, **kw)
@@ -404,7 +424,7 @@ def flash_case(name, B, S, dtype, gen, causal=True, window=0, softcap=0.0,
         flex["flex"] = (qt, kt, vt, softcap, mask_mod, None, S, S, want)
     # useful (q, k) pairs of this mask, each 4*D operations per head
     qpos = np.arange(S)
-    hi = qpos if causal else np.full(S, S - 1)
+    hi = qpos if causal else np.full(S, Skv - 1)
     lo = np.maximum(0, qpos - window + 1) if window else np.zeros(S, int)
     pairs = float(np.maximum(hi - lo + 1, 0).sum())
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
@@ -505,6 +525,17 @@ def kernel_checks() -> dict:
                     f"bf16", 1, GEMMA_LONG + 1, [GEMMA_LONG + 1], bf16, gen,
                     window=GEMMA_WINDOW, **gemma),
     ]
+    check_attention_rows(rows)
+    # the main path's shapes: a 17-token prompt (serve draws 4..23) and a
+    # 4-slot decode over the 128-position cache
+    return {"flash_attention": rows[0], "decode_attention": rows[5],
+            "s2048": rows[2], "cases": rows,
+            "gemma": rows[8:]}
+
+
+def check_attention_rows(rows: list) -> None:
+    """Log each K4/K5 row; fail on an error past its tolerance or a K4
+    call that is not one device kernel."""
     for r in rows:
         if r["softcap_effect"] is None:
             lib = f"sdpa_ms={r['library_ms']:.4f}"
@@ -531,11 +562,6 @@ def kernel_checks() -> dict:
             r["device_kernels_per_call"] not in (None, 1.0)]
     if many:
         raise SystemExit(f"decode_attention is not one launch a call: {many}")
-    # the main path's shapes: a 17-token prompt (serve draws 4..23) and a
-    # 4-slot decode over the 128-position cache
-    return {"flash_attention": rows[0], "decode_attention": rows[5],
-            "s2048": rows[2], "cases": rows,
-            "gemma": rows[8:]}
 
 
 # ---------------------------------------------------------------------------
@@ -595,10 +621,12 @@ def controls_check(arch: str, out: dict, witness: str | None) -> dict:
 
 def logits_check(arch: str = "llama3-8b", need_argmax: bool = False,
                  controls: dict | None = None,
-                 witness: str | None = None) -> dict:
+                 witness: str | None = None, tol: float = LOGITS_ATOL,
+                 params=None) -> dict:
     """One 17-token prefill and one decode step of ``arch`` at full width
-    through the kernel path and the plain path on the same weights; both
-    paths decode the kernel path's next token. Logits within LOGITS_ATOL;
+    through the kernel path and the plain path on the same weights (seed
+    0's, or ``params``); both paths decode the kernel path's next token;
+    an encdec arch's prompt carries its stub frames. Logits within ``tol``;
     with ``need_argmax`` both steps' argmax equal too (the plain path's
     top-two margins are printed beside it). Each of ``controls`` ({name:
     config fields}) runs the plain path with those fields replaced; see
@@ -606,17 +634,20 @@ def logits_check(arch: str = "llama3-8b", need_argmax: bool = False,
     cfg = get_config(arch)
     model = build(cfg, device="cuda")
     plain = build(cfg, device="cuda", plain_kernels=True)
-    params = model.init(0)
+    params = model.init(0) if params is None else params
     rng = np.random.default_rng(0)
-    prompt = torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (1, 17)).astype(np.int32)).cuda()
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (1, 17)).astype(np.int32)).cuda()}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.normal(size=(
+            1, cfg.encoder_frames, cfg.d_model)).astype(np.float32)).cuda()
     runs = [("kernel", model), ("plain", plain)] + [
         (name, build(dataclasses.replace(cfg, **kw), device="cuda",
                      plain_kernels=True))
         for name, kw in (controls or {}).items()]
     out, nxt = {}, None
     for name, m in runs:
-        logits0, caches = m.prefill(params, {"tokens": prompt}, 128)
+        logits0, caches = m.prefill(params, batch, 128)
         if nxt is None:
             nxt = torch.argmax(logits0[:, -1], dim=-1).to(torch.int32)[:, None]
         logits1, _ = m.decode_step(params, caches, nxt,
@@ -633,9 +664,9 @@ def logits_check(arch: str = "llama3-8b", need_argmax: bool = False,
     margins = [top2_margin(b)[0] for b in out["plain"]]
     log(f"logits[{arch}] kernel vs plain attention: prefill max_abs_err="
         f"{errs[0]:.3e} decode max_abs_err={errs[1]:.3e} (|logits| max "
-        f"{scale:.2f}, tol {LOGITS_ATOL}) argmax_equal={same} plain top-two "
+        f"{scale:.2f}, tol {tol}) argmax_equal={same} plain top-two "
         f"margins={[round(m, 4) for m in margins]}")
-    if max(errs) > LOGITS_ATOL or not all(math.isfinite(e) for e in errs):
+    if max(errs) > tol or not all(math.isfinite(e) for e in errs):
         raise SystemExit(f"{arch}: kernel-path logits disagree with the "
                          f"plain path")
     if need_argmax and not all(same):
@@ -645,7 +676,8 @@ def logits_check(arch: str = "llama3-8b", need_argmax: bool = False,
     del params, out, model, plain, runs
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(errs=errs, same=same, margins=margins, controls=ctrl)
+    return dict(errs=errs, same=same, margins=margins, controls=ctrl,
+                scale=scale)
 
 
 # ---------------------------------------------------------------------------
@@ -743,6 +775,19 @@ def ssd_checks() -> dict:
     rows = [ssd_case("B1_C1_L17_serve", 1, 1, 17, 48, 64, 128, rng),
             ssd_case("B1_S2048_C8_L256", 1, 8, 256, 48, 64, 128, rng),
             ssd_case("B4_S256_C1_L256", 4, 1, 256, 48, 64, 128, rng)]
+    check_ssd_rows(rows)
+    for r, shape in zip(rows, ((1, 1, 17), (1, 8, 256))):
+        split = ssd_split_us(ssd_chunk_args(*shape, 48, 64, 128, rng))
+        log(f"ssd_chunk {r['case']} device time by kernel (torch.profiler): "
+            + (" ".join(f"{k}={v:.1f}us" for k, v in split.items())
+               or "not measured (no device time recorded)"))
+    return {"serve": rows[0], "s2048": rows[1], "b4_s256": rows[2],
+            "max_abs_err": max(r["max_abs_err"] for r in rows)}
+
+
+def check_ssd_rows(rows: list) -> None:
+    """Log each K6 row; fail on a disagreement with the plain version or a
+    call that is not one device kernel."""
     for r in rows:
         log(f"check ssd_chunk {r['case']:18s} max_abs_err={r['max_abs_err']:.3e} "
             f"max|want|={r['scale']:.3g} allclose(rtol=atol={SSD_TOL:.0e})="
@@ -759,13 +804,6 @@ def ssd_checks() -> dict:
             if r["device_kernels_per_call"] not in (None, 1.0)]
     if many:
         raise SystemExit(f"ssd_chunk is not one launch a call: {many}")
-    for r, shape in zip(rows, ((1, 1, 17), (1, 8, 256))):
-        split = ssd_split_us(ssd_chunk_args(*shape, 48, 64, 128, rng))
-        log(f"ssd_chunk {r['case']} device time by kernel (torch.profiler): "
-            + (" ".join(f"{k}={v:.1f}us" for k, v in split.items())
-               or "not measured (no device time recorded)"))
-    return {"serve": rows[0], "s2048": rows[1], "b4_s256": rows[2],
-            "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
 
 # ---------------------------------------------------------------------------
@@ -790,13 +828,13 @@ def ssm_decode_step_ms(model, params, steps: int = 10) -> list:
     return out
 
 
-def long_prompt_run(cfg, model, plain, params, wrapper,
-                    length: int = LONG_PROMPT, controls=()) -> dict:
+def long_prompt_run(cfg, model, plain, params, length: int = LONG_PROMPT,
+                    controls=()) -> dict:
     """One ``length``-token prompt (prefill + one decode step) through the
     kernel path and through the plain path on the same weights (and
     through each of ``controls``, (name, model) pairs): last position's
-    logits of both steps, warm prefill wall times, and the kernel's
-    launches in each timed prefill."""
+    logits of both steps, warm prefill wall times, and every kernel's
+    launches in each timed prefill ({path: {kernel: launches}})."""
     rng = np.random.default_rng(0)
     prompt = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (1, length)).astype(np.int32)).to(DEVICE)
@@ -813,7 +851,7 @@ def long_prompt_run(cfg, model, plain, params, wrapper,
         logits0, caches = m.prefill(params, {"tokens": prompt}, length + 1)
         torch.cuda.synchronize()
         times[name] = (time.perf_counter() - t0) * 1e3
-        launches[name] = wrapper.launches
+        launches[name] = read_launches()
         logits1, _ = m.decode_step(params, caches, nxt, torch.tensor(
             [length], dtype=torch.int32, device=DEVICE))
         out[name] = (logits0.float(), logits1.float())
@@ -840,11 +878,13 @@ def attn_long_prompt_check(arch: str, length: int, k5_ms: float,
     model = build(cfg, device="cuda")
     plain = build(cfg, device="cuda", plain_kernels=True)
     params = model.init(0)
-    r = long_prompt_run(cfg, model, plain, params, flash_attention, length,
+    r = long_prompt_run(cfg, model, plain, params, length,
                         [(name, build(dataclasses.replace(cfg, **kw),
                                       device="cuda", plain_kernels=True))
                          for name, kw in (controls or {}).items()])
-    errs, t, n = r["errs"], r["prefill_ms"], r["launches"]
+    errs, t = r["errs"], r["prefill_ms"]
+    n = {path: k["flash_attention"] for path, k in r["launches"].items()}
+    r["launches"] = n
     share = k5_ms / t["kernel"]
     log(f"{arch} {length}-token prompt, K5 vs plain attention: "
         f"prefill max_abs_err={errs[0]:.3e} decode max_abs_err={errs[1]:.3e} "
@@ -879,9 +919,9 @@ def ssm_long_prompt_check(k6_ms: float) -> dict:
     log(f"mamba2-780m decode step, 4 slots: mean {np.mean(steps):.2f} ms "
         f"min {min(steps):.2f} max {max(steps):.2f} ({len(steps)} steps, "
         f"host clock, synchronized)")
-    r = long_prompt_run(cfg, model, plain, params, ssd_chunk)
-    errs, times, launches, same = (r["errs"], r["prefill_ms"],
-                                   r["launches"], r["same"])
+    r = long_prompt_run(cfg, model, plain, params)
+    errs, times, same = r["errs"], r["prefill_ms"], r["same"]
+    launches = {path: k["ssd_chunk"] for path, k in r["launches"].items()}
     share = launches["kernel"] * k6_ms / times["kernel"]
     log(f"mamba2-780m {LONG_PROMPT}-token prompt, K6 vs plain SSD: prefill "
         f"max_abs_err={errs[0]:.3e} decode max_abs_err={errs[1]:.3e} "
@@ -1121,6 +1161,176 @@ def dense_configs_phase(chunked_args: list, gemma_rows: list) -> dict:
     return dict(gemma_host=host, gemma_chunked=chunked, gemma_logits=g_logits,
                 gemma_long=g_long, mistral_host=mistral,
                 mistral_logits=m_logits)
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: K4/K5/K6 at zamba2-7b's and whisper-tiny's shapes
+# ---------------------------------------------------------------------------
+
+ZAMBA_ATTN = dict(Hq=32, Hkv=32, D=112)       # the shared block's heads
+WHISPER_ATTN = dict(Hq=6, Hkv=6, D=64)
+
+
+def hybrid_encdec_kernel_checks() -> dict:
+    """K5 at D=112 (zamba2-7b's shared block: a 17-token prompt and the
+    2048-token one, causal), K5 at whisper-tiny's encoder (1500 frames,
+    non-causal) and cross-attention shapes (17 queries against the 1500
+    frames), and its decoder's 17-token causal prompt; K4 at zamba2-7b's
+    serve shape (4 slots, 128 positions, 32 kv heads of 112: 128 clusters)
+    and at whisper-tiny's decode self- and cross-attention (all 1500
+    frames live: the cross path's route); K6 at zamba2-7b's SSM shape (112
+    heads, P=64, N=64) for a 17-token prompt and 2048 tokens. Each against
+    its plain version at bf16 2e-2 (K6 f32 rtol and atol 1e-4)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    bf16, F = torch.bfloat16, get_config("whisper-tiny").encoder_frames
+    z, w = ZAMBA_ATTN, WHISPER_ATTN
+    attn = [
+        flash_case("zamba2_B1_S17_causal_D112_bf16", 1, 17, bf16, gen, **z),
+        flash_case(f"zamba2_B1_S{LONG_PROMPT}_causal_D112_bf16", 1,
+                   LONG_PROMPT, bf16, gen, **z),
+        flash_case(f"whisper_encoder_B1_S{F}_D64_bf16", 1, F, bf16, gen,
+                   causal=False, **w),
+        flash_case(f"whisper_cross_B1_Sq17_Skv{F}_D64_bf16", 1, 17, bf16,
+                   gen, causal=False, Skv=F, **w),
+        flash_case("whisper_B1_S17_causal_D64_bf16", 1, 17, bf16, gen, **w),
+        decode_case("zamba2_B4_S128_ragged_D112_bf16", 4, 128,
+                    [128, 1, 77, 64], bf16, gen, **z),
+        decode_case(f"whisper_cross_decode_B4_S{F}_D64_bf16", 4, F, [F] * 4,
+                    bf16, gen, **w),
+        decode_case("whisper_B4_S128_ragged_D64_bf16", 4, 128,
+                    [128, 1, 77, 64], bf16, gen, **w),
+    ]
+    check_attention_rows(attn)
+    rng = np.random.default_rng(19)
+    ssd = [ssd_case("zamba2_B1_C1_L17_H112_N64", 1, 1, 17, 112, 64, 64, rng),
+           ssd_case(f"zamba2_B1_S{LONG_PROMPT}_C8_L256_H112_N64", 1, 8, 256,
+                    112, 64, 64, rng)]
+    check_ssd_rows(ssd)
+    return {r["case"]: r for r in attn + ssd}
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: zamba2-7b (hybrid) and whisper-tiny (encdec) at full width
+# ---------------------------------------------------------------------------
+
+# kernel vs plain logits through zamba2-7b's 81 SSM layers and 13
+# shared-block invocations, bf16 rounding carried through 94 blocks: set
+# from the spread measured on the card, 0.23-0.29 at |logits| max 4.4-4.6
+# (17-token and 2048-token prompts, prefill and decode); llama3-8b's 0.25
+# over 32 layers would sit inside that spread
+HYBRID_LOGITS_ATOL = 0.5
+
+
+def decode_device_ms(model, params, steps: int = 3) -> tuple[float, float]:
+    """(device busy ms, device kernels) a synchronized 4-slot decode step,
+    from one ``torch.profiler`` pass over ``steps`` steps after one warm-up
+    step: the union of the device intervals over the pass, per step."""
+    from torch.profiler import ProfilerActivity, profile
+    caches = model.init_caches(4, 128)
+    tok = torch.zeros((4, 1), dtype=torch.int32, device=DEVICE)
+
+    def step(i):
+        model.decode_step(params, caches, tok, torch.full(
+            (4,), i, dtype=torch.int32, device=DEVICE))
+    step(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            step(i + 1)
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type.name == "CUDA")
+    busy_ms, _ = busy_share(prof, "")
+    return busy_ms / steps, n / steps
+
+
+def hybrid_phase(chunked_args: list, rows: dict) -> dict:
+    """zamba2-7b at full width (81 mamba2 layers of 112 heads x 64, state
+    64; one shared attention+MLP block of 32/32 heads x 112 applied 13
+    times; bf16, random weights from seed 0): served with host prefill (K5
+    13 invocations x 4 prompts, K6 81 layers x 4 prompts) and with chunked
+    prefill (neither); a 17-token prompt's logits against the plain path;
+    the 4-slot decode step's host time beside its device time; one
+    2048-token prompt through K5 (13 launches) and K6 (81) against the
+    plain path, with their share of the prefill."""
+    cfg = get_config("zamba2-7b")
+    groups = cfg.num_layers // cfg.shared_attn_every
+    host = serve_run("zamba2-7b", "host_prefill", [])
+    chunked = serve_run("zamba2-7b", "chunked_prefill", chunked_args)
+    if host["flash_attention"] != groups * 4 or \
+            host["ssd_chunk"] != cfg.num_layers * 4 or \
+            not host["decode_attention"] or chunked["flash_attention"] or \
+            chunked["ssd_chunk"] or not chunked["decode_attention"]:
+        raise SystemExit(f"zamba2-7b serve: launches host {host} (want K5 "
+                         f"{groups} x 4, K6 {cfg.num_layers} x 4) chunked "
+                         f"{chunked} (want K5 and K6 0)")
+    model = build(cfg, device="cuda")
+    plain = build(cfg, device="cuda", plain_kernels=True)
+    params = model.init(0)
+    logits = logits_check("zamba2-7b", tol=HYBRID_LOGITS_ATOL, params=params)
+    steps = ssm_decode_step_ms(model, params)
+    dev_ms, dev_kernels = decode_device_ms(model, params)
+    log(f"zamba2-7b decode step, 4 slots: mean {np.mean(steps):.2f} ms min "
+        f"{min(steps):.2f} max {max(steps):.2f} ({len(steps)} steps, host "
+        f"clock, synchronized); device busy {dev_ms:.2f} ms a step "
+        f"({dev_kernels:.0f} device kernels a step, torch.profiler)")
+    r = long_prompt_run(cfg, model, plain, params)
+    errs, t, n = r["errs"], r["prefill_ms"], r["launches"]
+    k5_ms = groups * rows[f"zamba2_B1_S{LONG_PROMPT}_causal_D112_bf16"]["ms"]
+    k6_ms = cfg.num_layers * \
+        rows[f"zamba2_B1_S{LONG_PROMPT}_C8_L256_H112_N64"]["ms"]
+    log(f"zamba2-7b {LONG_PROMPT}-token prompt, K5+K6 vs plain: prefill "
+        f"max_abs_err={errs[0]:.3e} decode max_abs_err={errs[1]:.3e} "
+        f"(|logits| max {r['scale']:.2f}, tol {HYBRID_LOGITS_ATOL}) "
+        f"argmax_equal={r['same']} prefill_ms kernel={t['kernel']:.2f} "
+        f"plain={t['plain']:.2f} launches kernel flash_attention="
+        f"{n['kernel']['flash_attention']} ssd_chunk="
+        f"{n['kernel']['ssd_chunk']} plain flash_attention="
+        f"{n['plain']['flash_attention']} ssd_chunk={n['plain']['ssd_chunk']}"
+        f" share of the kernel-path prefill K5={k5_ms / t['kernel']:.3f} "
+        f"K6={k6_ms / t['kernel']:.3f} ({k5_ms:.3f} + {k6_ms:.3f} ms)")
+    if max(errs) > HYBRID_LOGITS_ATOL or \
+            not all(math.isfinite(e) for e in errs):
+        raise SystemExit("zamba2-7b long prompt: kernel-path logits disagree "
+                         "with the plain path")
+    if n["kernel"]["flash_attention"] != groups or \
+            n["kernel"]["ssd_chunk"] != cfg.num_layers or \
+            n["plain"]["flash_attention"] or n["plain"]["ssd_chunk"]:
+        raise SystemExit(f"zamba2-7b long prompt: launches {n}")
+    del params, model, plain, r["out"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(zamba2_7b_host_prefill=host,
+                zamba2_7b_chunked_prefill=chunked, logits=logits,
+                decode_step_ms=steps, decode_device_ms=dev_ms,
+                long_prefill_ms=t, long_errs=errs, long_launches=n["kernel"],
+                k5_share=k5_ms / t["kernel"], k6_share=k6_ms / t["kernel"])
+
+
+def encdec_phase(chunked_args: list) -> dict:
+    """whisper-tiny at full width (4 encoder and 4 decoder layers, d=384,
+    6/6 heads x 64, vocab 51865, 1500 stub frames a request drawn from the
+    seed): served with host prefill and with ``--chunked-prefill``, where
+    requests with frames still take the host prefill (K5 launched once an
+    encoder layer and twice a decoder layer a prompt on both runs; K4 for
+    decode self- and cross-attention); a 17-token prompt's logits (its
+    frames drawn from the seed) against the plain path."""
+    cfg = get_config("whisper-tiny")
+    per_prompt = cfg.encoder_layers + 2 * cfg.num_layers
+    host = serve_run("whisper-tiny", "host_prefill", [])
+    chunked = serve_run("whisper-tiny", "chunked_prefill", chunked_args)
+    for label, run in (("host", host), ("chunked", chunked)):
+        if run["flash_attention"] != per_prompt * 4 or \
+                not run["decode_attention"]:
+            raise SystemExit(f"whisper-tiny serve ({label}): launches {run} "
+                             f"(want K5 {per_prompt} x 4: the host prefill "
+                             f"on both runs)")
+    logits = logits_check("whisper-tiny")
+    return dict(whisper_tiny_host_prefill=host,
+                whisper_tiny_chunked_prefill=chunked, logits=logits)
 
 
 # ---------------------------------------------------------------------------
@@ -1701,6 +1911,7 @@ def main(argv=None) -> int:
 
     checks = kernel_checks()
     ssd = ssd_checks()
+    hyb_rows = hybrid_encdec_kernel_checks()
     chunked_args = ["--chunked-prefill", "--prefill-chunk", "8"]
     host = serve_run("llama3-8b", "host_prefill", [])
     chunked = serve_run("llama3-8b", "chunked_prefill", chunked_args)
@@ -1724,6 +1935,10 @@ def main(argv=None) -> int:
             f"host prefill (want {layers} layers x 4 prompts), "
             f"{ssm_chunked['ssd_chunk']} on chunked prefill (want 0)")
     ssm_long = ssm_long_prompt_check(ssd["s2048"]["ms"])
+    hybrid = hybrid_phase(chunked_args, hyb_rows)
+    encdec = encdec_phase(chunked_args)
+    new_runs = {k: v for phase in (hybrid, encdec) for k, v in phase.items()
+                if k.endswith("_prefill")}
 
     tiles = tile_kernel_checks()
     paths = {}
@@ -1819,6 +2034,27 @@ def main(argv=None) -> int:
                                                   for k in keys}
             row = dict(row, max_abs_err=max(row["max_abs_err"],
                                             tiles[name]["max_abs_err"]))
+        if name in ATTENTION + ("ssd_chunk",):
+            # zamba2-7b's and whisper-tiny's serve runs and shapes
+            for run, launched in new_runs.items():
+                extra["launches_" + run] = launched[name]
+            for r in hyb_rows.values():
+                if r["kernel"] == name:
+                    extra["at_" + r["case"]] = {
+                        k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms",
+                                          "max_abs_err")}
+        if name == "flash_attention":
+            extra["zamba2_7b_long_prompt"] = dict(
+                tokens=LONG_PROMPT,
+                launches=hybrid["long_launches"]["flash_attention"],
+                prefill_ms=hybrid["long_prefill_ms"],
+                k5_share=hybrid["k5_share"])
+        if name == "ssd_chunk":
+            extra["zamba2_7b_long_prompt"] = dict(
+                tokens=LONG_PROMPT,
+                launches=hybrid["long_launches"]["ssd_chunk"],
+                k6_share=hybrid["k6_share"])
         if name == "persistent_drain":
             extra["launches_preemption_probe"] = probe
         kernels.append({

@@ -47,7 +47,7 @@ EDGE = "      if (edge) {"
 EXP = "sc[i] = ex2(sc[i] - m[r]);"
 EX2 = "ex2(m[r] - m_new);"
 PINGPONG = "const bool pingpong = active == CONSUMERS;"
-PV = "Wgmma<D>::rs(oacc, p[kk], dv, 1);"
+PV = "Wgmma<DC>::rs(oacc, p[kk], dv, 1);"
 STAGES = "constexpr int STAGES_D128 = 2;"
 SHORT = "const bool short_s = S <= WG_ROWS;"
 GRID = "const int grid = (int)(items < sms ? items : sms);"
@@ -87,7 +87,7 @@ def load(so: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.k5_flash_attention_fwd.argtypes = [
-        vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cf, ci, cf, vp]
+        vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, cf, ci, cf, vp]
     lib.k5_flash_attention_fwd.restype = ci
     lib.k5_error_string.argtypes = [ci]
     lib.k5_error_string.restype = ctypes.c_char_p

@@ -285,6 +285,7 @@ def _ensure_loaded() -> None:
     # only the configs whose model family has been ported register here
     from repro_torch.configs import (  # noqa: F401
         gemma2_2b, llama3_8b, mamba2_780m, mistral_nemo_12b, qwen2_72b,
+        whisper_tiny, zamba2_7b,
     )
     _LOADED = True
 

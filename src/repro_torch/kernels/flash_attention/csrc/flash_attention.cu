@@ -2,11 +2,21 @@
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py::_flash_kernel
 // (flash_attention_pallas). Same function: q (B,S,Hq,D) against k/v
-// (B,S,Hkv,D), GQA head h -> kv head h / (Hq/Hkv), scale 1/sqrt(D), optional
-// tanh softcap, causal and sliding-window masks, keys at or past `kv_len`
-// (the reference's seq_len) masked, online softmax with f32 (m, l, acc),
-// masked scores at -1e30 exactly as the reference. Unlike the Pallas kernel
-// (which asserts S % block == 0) it masks ragged edges itself: any S >= 1.
+// (B,Skv,Hkv,D), GQA head h -> kv head h / (Hq/Hkv), scale 1/sqrt(D),
+// optional tanh softcap, causal and sliding-window masks, keys at or past
+// `kv_len` (the reference's seq_len) masked, online softmax with f32 (m, l,
+// acc), masked scores at -1e30 exactly as the reference. Unlike the Pallas
+// kernel (which asserts S % block == 0) it masks ragged edges itself: any
+// S >= 1. The query and key lengths may differ (cross-attention: a prompt
+// against encoder frames) where there is no causal mask and no window; the
+// key tiles, their addresses and the kv_len mask then follow Skv (the
+// Pallas kernel takes its key blocks from q's length, so it reads only the
+// first S keys there: the port holds the reference's flash_xla function).
+// Head dims 64, 112, 128 and 256; D = 112 (zamba2-7b) runs the bf16 kernel
+// at a compute width of 128: its tensor maps are 112 wide, so the TMA
+// zero-fills columns 112-127 of each row's second 64-column box, which
+// leaves Q·Kᵀ unchanged and P·V's extra columns 0, and only 112 columns
+// are stored (the scale stays 1/sqrt(112), from the wrapper).
 //
 // What bounds it on the H100: at prefill lengths (S >= ~300 per head) the
 // useful operations, 4*S^2*D*Hq/2 for causal, outweigh the bytes (q, k, v, o
@@ -83,22 +93,26 @@ __device__ __forceinline__ void store16(T* p, const float* in) {
 }
 
 // ---- FFMA path (f32) --------------------------------------------------------
-// grid (ceil(S/BQ), Hq, B); THREADS threads; TPR = D/32 threads per query
-// row, BQ = THREADS/TPR rows per CTA. Thread `part` of a row owns the dims
-// (c*TPR + part)*VN + [0, VN) for c in [0, 32/VN): neighbouring threads read
-// neighbouring 16-byte chunks of a shared K/V row (no bank conflicts), and a
-// row's dot product is finished with log2(TPR) xor-shuffles.
+// grid (ceil(S/BQ), Hq, B); THREADS threads; TPR = ceil(D/32) threads per
+// query row (a power of two), BQ = THREADS/TPR rows per CTA, DPT = D/TPR
+// dims a thread (32; 28 at D = 112). Thread `part` of a row owns the dims
+// (c*TPR + part)*VN + [0, VN) for c in [0, DPT/VN): neighbouring threads
+// read neighbouring 16-byte chunks of a shared K/V row (no bank conflicts),
+// and a row's dot product is finished with log2(TPR) xor-shuffles.
 template <int D, typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 int S, int Hq, int Hkv, int causal, int window,
+                 int S, int Skv, int Hq, int Hkv, int causal, int window,
                  float softcap, int kv_len, float scale) {
-  constexpr int TPR = D / 32;
+  constexpr int TPR = (D + 31) / 32;
   constexpr int BQ = THREADS / TPR;
   constexpr int VN = Vec<T>::N;
-  constexpr int NV = 32 / VN;          // 16-byte vectors per thread per row
+  constexpr int DPT = D / TPR;         // dims a thread
+  constexpr int NV = DPT / VN;         // 16-byte vectors per thread per row
   constexpr int VPR = D / VN;          // 16-byte vectors per K/V row
+  static_assert((TPR & (TPR - 1)) == 0 && NV * VN * TPR == D,
+                "head dim must split into 16-byte vectors over TPR threads");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sK = reinterpret_cast<T*>(smem_raw);
@@ -113,18 +127,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * BQ;
   const int qpos = q0 + row;
 
-  float qr[32];
-  float acc[32];
+  float qr[DPT];
+  float acc[DPT];
   if (qpos < S) {
     const T* qp = q + ((size_t)(b * S + qpos) * Hq + h) * D;
 #pragma unroll
     for (int c = 0; c < NV; ++c) load16(qp + (c * TPR + part) * VN, qr + c * VN);
   } else {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) qr[i] = 0.f;
+    for (int i = 0; i < DPT; ++i) qr[i] = 0.f;
   }
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < DPT; ++i) {
     qr[i] *= scale;
     acc[i] = 0.f;
   }
@@ -146,8 +160,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kp = k0 + j;
       uint4 kk = make_uint4(0, 0, 0, 0);
       uint4 vv = make_uint4(0, 0, 0, 0);
-      if (kp < S) {
-        const size_t off = ((size_t)(b * S + kp) * Hkv + hk) * D + c * VN;
+      if (kp < Skv) {
+        const size_t off = ((size_t)(b * Skv + kp) * Hkv + hk) * D + c * VN;
         kk = *reinterpret_cast<const uint4*>(k + off);
         vv = *reinterpret_cast<const uint4*>(v + off);
       }
@@ -190,7 +204,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float corr = expf(m - m_new);
     l *= corr;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] *= corr;
+    for (int i = 0; i < DPT; ++i) acc[i] *= corr;
 #pragma unroll
     for (int j = 0; j < BK; ++j) {
       const float p = expf(s[j] - m_new);
@@ -209,7 +223,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (qpos < S) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] *= inv;
+    for (int i = 0; i < DPT; ++i) acc[i] *= inv;
     T* op = o + ((size_t)(b * S + qpos) * Hq + h) * D;
 #pragma unroll
     for (int c = 0; c < NV; ++c) store16(op + (c * TPR + part) * VN, acc + c * VN);
@@ -218,9 +232,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <int D, typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int Hq, int Hkv, int causal, int window, float softcap, int kv_len,
-           float scale, cudaStream_t stream) {
-  constexpr int BQ = THREADS / (D / 32);
+           int Skv, int Hq, int Hkv, int causal, int window, float softcap,
+           int kv_len, float scale, cudaStream_t stream) {
+  constexpr int BQ = THREADS / ((D + 31) / 32);
   const int smem = 2 * BK * D * (int)sizeof(T);
   auto kern = flash_fwd_kernel<D, T>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -229,19 +243,20 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   dim3 grid((S + BQ - 1) / BQ, Hq, B);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, Hq, Hkv, causal,
+      static_cast<const T*>(v), static_cast<T*>(o), S, Skv, Hq, Hkv, causal,
       window, softcap, kv_len, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_d(int D, const void* q, const void* k, const void* v, void* o,
-             int B, int S, int Hq, int Hkv, int causal, int window,
+             int B, int S, int Skv, int Hq, int Hkv, int causal, int window,
              float softcap, int kv_len, float scale, cudaStream_t stream) {
   switch (D) {
-    case 64: return launch<64, T>(q, k, v, o, B, S, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
-    case 128: return launch<128, T>(q, k, v, o, B, S, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
-    case 256: return launch<256, T>(q, k, v, o, B, S, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
+    case 64: return launch<64, T>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
+    case 112: return launch<112, T>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
+    case 128: return launch<128, T>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
+    case 256: return launch<256, T>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
     default: return -1;
   }
 }
@@ -260,6 +275,9 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* o,
 // Every tile is stored as 64-column slabs of 128-byte rows in the TMA's
 // 128-byte swizzle, which is the layout wgmma's B128 descriptors read:
 // Q and K K-major (head dim contiguous), V MN-major for B (transposed).
+// A head dim that is not a multiple of 64 (112) fills its last slab
+// partly: the TMA writes zeros past D, Q·Kᵀ skips the all-zero k16 steps,
+// and P·V's columns past D are computed as 0 and never stored.
 // A persistent grid of at most one CTA an SM walks the (query block,
 // head, sequence) items; Q is released (q_empty) once both consumers'
 // last Q·Kᵀ of an item is done, so the next item's Q loads meanwhile.
@@ -282,6 +300,10 @@ constexpr int SMEM_D64 = SMEM_ALIGN + BQ * 64 * 2 + STAGES_D64 * 2 * BK_D64 * 64
 constexpr int BK_D128 = 128;
 constexpr int STAGES_D128 = 2;
 constexpr int SMEM_D128 = SMEM_ALIGN + BQ * 128 * 2 + STAGES_D128 * 2 * BK_D128 * 128 * 2 + BAR_BYTES;
+// D = 112 computes at the D = 128 instance's width (two 64-column slabs)
+constexpr int BK_D112 = BK_D128;
+constexpr int STAGES_D112 = STAGES_D128;
+constexpr int SMEM_D112 = SMEM_D128;
 constexpr int BK_D256 = 64;
 constexpr int STAGES_D256 = 2;
 constexpr int SMEM_D256 = SMEM_ALIGN + BQ * 256 * 2 + STAGES_D256 * 2 * BK_D256 * 256 * 2 + BAR_BYTES;
@@ -292,6 +314,9 @@ constexpr int BK_SHORT = 64;
 template <int D> struct TcCfg;
 template <> struct TcCfg<64> {
   static constexpr int STAGES = STAGES_D64, SMEM = SMEM_D64;
+};
+template <> struct TcCfg<112> {
+  static constexpr int STAGES = STAGES_D112, SMEM = SMEM_D112;
 };
 template <> struct TcCfg<128> {
   static constexpr int STAGES = STAGES_D128, SMEM = SMEM_D128;
@@ -554,7 +579,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_v,
                        const TcArgs a) {
   constexpr int STAGES = TcCfg<D>::STAGES;
-  constexpr int SLABS = D / TMA_BOX;
+  constexpr int DC = (D + TMA_BOX - 1) / TMA_BOX * TMA_BOX;   // compute width
+  constexpr int SLABS = DC / TMA_BOX;
   constexpr int Q_SLAB = BQ * SLAB_ROW_BYTES;        // bytes of one Q slab
   constexpr int KV_SLAB = BKT * SLAB_ROW_BYTES;      // bytes of one K/V slab
   constexpr int KV_TILE = SLABS * KV_SLAB;
@@ -641,7 +667,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     int w0 = 0;                                      // this item's rows:
     int r0 = 0;                                      // w0.., r0 and r0 + 8
 
-    float oacc[D / 2];
+    float oacc[DC / 2];
     float m[2], l[2];
 
     // S = Q Kᵀ of the tile in `st`: 64 rows x BKT keys, D / 16 steps
@@ -663,7 +689,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int kk = 0; kk < BKT / 16; ++kk) {
         const uint64_t dv = sw128_desc(
             sV + st * KV_TILE + kk * 16 * SLAB_ROW_BYTES, KV_SLAB);
-        Wgmma<D>::rs(oacc, p[kk], dv, 1);
+        Wgmma<DC>::rs(oacc, p[kk], dv, 1);
       }
       wgmma_commit();
     };
@@ -749,7 +775,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       int j_begin, j_end;
       tile_range<BKT>(a, it.q0, j_begin, j_end);
 #pragma unroll
-      for (int x = 0; x < D / 2; ++x) oacc[x] = 0.f;
+      for (int x = 0; x < DC / 2; ++x) oacc[x] = 0.f;
       m[0] = m[1] = NEG;
       l[0] = l[1] = 0.f;
 
@@ -798,7 +824,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           fence_regs(oacc);
           if (lane == 0) mbar_arrive(empty_v(ps));
 #pragma unroll
-          for (int x = 0; x < D / 2; ++x) oacc[x] *= corr[(x >> 1) & 1];
+          for (int x = 0; x < DC / 2; ++x) oacc[x] *= corr[(x >> 1) & 1];
           to_bf16(s, pa);
         }
         mbar_wait(full_v(cs), cp);
@@ -871,7 +897,8 @@ EncodeTiledFn encoder() {
 
 // The 4-D view (D, H, S, B) of a contiguous (B, S, H, D) bf16 tensor, boxes
 // of 64 head-dim columns x `rows` positions of one head and one sequence:
-// rows past S are zero-filled on load, never read from the next sequence.
+// rows past S, and columns past D, are zero-filled on load, never read from
+// the next sequence or head.
 int encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
                 int rows) {
   EncodeTiledFn fn = encoder();
@@ -898,8 +925,8 @@ int g_smem_request = 0;
 
 template <int D, int BKT>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
-              int S, int Hq, int Hkv, int causal, int window, float softcap,
-              int kv_len, float scale, cudaStream_t stream) {
+              int S, int Skv, int Hq, int Hkv, int causal, int window,
+              float softcap, int kv_len, float scale, cudaStream_t stream) {
   const int smem = g_smem_request > 0 ? g_smem_request : TcCfg<D>::SMEM;
   auto kern = flash_fwd_wgmma_kernel<D, BKT>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -910,8 +937,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
   }
   CUtensorMap tq, tk, tv;
   int e = encode_bshd(&tq, q, B, S, Hq, D, BQ);
-  if (!e) e = encode_bshd(&tk, k, B, S, Hkv, D, BKT);
-  if (!e) e = encode_bshd(&tv, v, B, S, Hkv, D, BKT);
+  if (!e) e = encode_bshd(&tk, k, B, Skv, Hkv, D, BKT);
+  if (!e) e = encode_bshd(&tv, v, B, Skv, Hkv, D, BKT);
   if (e) return e;
   constexpr float LOG2E = 1.4426950408889634f;
   TcArgs a;
@@ -935,34 +962,40 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
 }
 
 int launch_bf16(int D, const void* q, const void* k, const void* v, void* o,
-                int B, int S, int Hq, int Hkv, int causal, int window,
+                int B, int S, int Skv, int Hq, int Hkv, int causal, int window,
                 float softcap, int kv_len, float scale, cudaStream_t stream) {
-  // a prompt that one consumer warpgroup holds reads at most 64 keys
+  // a prompt that one consumer warpgroup holds takes 64-key stages (chosen
+  // on the query length: a short prompt against 1500 encoder frames too)
   const bool short_s = S <= WG_ROWS;
   switch (D) {
-    case 64: return short_s ? launch_tc<64, BK_SHORT>(q, k, v, o, B, S, Hq, Hkv, causal, window, softcap, kv_len, scale, stream)
-                            : launch_tc<64, BK_D64>(q, k, v, o, B, S, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
-    case 128: return short_s ? launch_tc<128, BK_SHORT>(q, k, v, o, B, S, Hq, Hkv, causal, window, softcap, kv_len, scale, stream)
-                             : launch_tc<128, BK_D128>(q, k, v, o, B, S, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
-    case 256: return launch_tc<256, BK_D256>(q, k, v, o, B, S, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
+    case 64: return short_s ? launch_tc<64, BK_SHORT>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream)
+                            : launch_tc<64, BK_D64>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
+    case 112: return short_s ? launch_tc<112, BK_SHORT>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream)
+                             : launch_tc<112, BK_D112>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
+    case 128: return short_s ? launch_tc<128, BK_SHORT>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream)
+                             : launch_tc<128, BK_D128>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
+    case 256: return launch_tc<256, BK_D256>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
     default: return ERR_HEAD_DIM;
   }
 }
 
 }  // namespace
 
-// Returns 0, a cudaError_t code, or a negative code of this file (an
-// unsupported head dim, no tensor-map encoder, a refused tensor map).
+// q (B,S,Hq,D), k/v (B,Skv,Hkv,D) -> o (B,S,Hq,D); Skv != S only without
+// a causal mask or a window (the wrapper checks). Returns 0, a cudaError_t
+// code, or a negative code of this file (an unsupported head dim, no
+// tensor-map encoder, a refused tensor map).
 extern "C" int k5_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* o, int B, int S,
-                                      int Hq, int Hkv, int D, int is_bf16,
-                                      int causal, int window, float softcap,
-                                      int kv_len, float scale, void* stream) {
+                                      int Skv, int Hq, int Hkv, int D,
+                                      int is_bf16, int causal, int window,
+                                      float softcap, int kv_len, float scale,
+                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_bf16(D, q, k, v, o, B, S, Hq, Hkv, causal, window, softcap,
-                       kv_len, scale, st);
-  return launch_d<float>(D, q, k, v, o, B, S, Hq, Hkv, causal, window,
+    return launch_bf16(D, q, k, v, o, B, S, Skv, Hq, Hkv, causal, window,
+                       softcap, kv_len, scale, st);
+  return launch_d<float>(D, q, k, v, o, B, S, Skv, Hq, Hkv, causal, window,
                          softcap, kv_len, scale, st);
 }
 

@@ -6,6 +6,12 @@ Port of ``repro.kernels.flash_attention`` (``_flash_kernel`` /
 in ``csrc/flash_attention.cu`` for CUDA tensors and uses
 ``flash_attention_plain`` for CPU tensors — the only case in which it does.
 On a CUDA tensor it launches the kernel or raises.
+
+The query and key lengths may differ (whisper's cross-attention: a prompt
+against 1500 encoder frames) where there is neither a causal mask nor a
+window: that is ``repro.models.attention.flash_xla``'s function. (The
+reference's Pallas kernel takes its key blocks from q's length, so there it
+reads only the first Sq keys.)
 """
 from __future__ import annotations
 
@@ -19,7 +25,7 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 112, 128, 256)
 NEG_INF = -1e30
 
 _lib: Optional[ctypes.CDLL] = None
@@ -32,7 +38,8 @@ def library() -> ctypes.CDLL:
         lib = _build.load(SOURCE)
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.k5_flash_attention_fwd.argtypes = [
-            vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cf, ci, cf, vp]
+            vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, cf, ci, cf,
+            vp]
         lib.k5_flash_attention_fwd.restype = ci
         lib.k5_error_string.argtypes = [ci]
         lib.k5_error_string.restype = ctypes.c_char_p
@@ -46,7 +53,9 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                           attn_softcap: float = 0.0,
                           seq_len: Optional[int] = None):
     """Plain PyTorch version: full f32 scores, masked at -1e30, softmax.
-    q: (B,S,Hq,D); k,v: (B,S,Hkv,D) -> (B,S,Hq,D) in q's dtype."""
+    q: (B,S,Hq,D); k,v: (B,Skv,Hkv,D) -> (B,S,Hq,D) in q's dtype; Skv may
+    differ from S only without a causal mask or a window."""
+    _check_lengths(q, k, causal, window)
     B, S, Hq, D = q.shape
     Skv = k.shape[1]
     G = Hq // k.shape[2]
@@ -69,6 +78,16 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
 
 
+def _check_lengths(q, k, causal: bool, window: int) -> None:
+    """Unequal query and key lengths only without a causal mask or a
+    window (``flash_xla`` asserts the first; the kernel's window masks
+    count query and key positions from one origin)."""
+    if q.shape[1] != k.shape[1] and (causal or window):
+        raise ValueError(f"q length {q.shape[1]} != k/v length {k.shape[1]}: "
+                         f"only non-causal attention without a window takes "
+                         f"unequal lengths")
+
+
 def _check(q, k, v) -> None:
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("q, k and v must lie on one CUDA device")
@@ -77,11 +96,11 @@ def _check(q, k, v) -> None:
         raise TypeError(f"flash_attention takes float32 or bfloat16 q/k/v of "
                         f"one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"expected q (B,S,Hq,D) and k, v (B,S,Hkv,D); got "
+        raise ValueError(f"expected q (B,S,Hq,D) and k, v (B,Skv,Hkv,D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     B, S, Hq, D = q.shape
-    if k.shape[0] != B or k.shape[1] != S or k.shape[3] != D:
+    if k.shape[0] != B or k.shape[3] != D or k.shape[1] < 1:
         raise ValueError(f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
     if Hq % k.shape[2]:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={k.shape[2]}")
@@ -95,22 +114,24 @@ def _check(q, k, v) -> None:
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     attn_softcap: float = 0.0,
                     seq_len: Optional[int] = None):
-    """q: (B,S,Hq,D); k,v: (B,S,Hkv,D) -> (B,S,Hq,D). CUDA tensors launch
-    the Hopper kernel on the current stream (no synchronization); CPU
-    tensors take the plain version. ``flash_attention.launches`` counts
-    kernel launches."""
+    """q: (B,S,Hq,D); k,v: (B,Skv,Hkv,D) -> (B,S,Hq,D); Skv != S only
+    without a causal mask or a window. CUDA tensors launch the Hopper kernel
+    on the current stream (no synchronization); CPU tensors take the plain
+    version. ``flash_attention.launches`` counts kernel launches."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      attn_softcap=attn_softcap,
                                      seq_len=seq_len)
     _check(q, k, v)
+    _check_lengths(q, k, causal, window)
     B, S, Hq, D = q.shape
-    kv_len = S if seq_len is None else max(0, min(int(seq_len), S))
+    Skv = k.shape[1]
+    kv_len = Skv if seq_len is None else max(0, min(int(seq_len), Skv))
     out = torch.empty_like(q)
     lib = library()
     err = lib.k5_flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, Hq,
-        k.shape[2], D, int(q.dtype == torch.bfloat16), int(bool(causal)),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, Skv,
+        Hq, k.shape[2], D, int(q.dtype == torch.bfloat16), int(bool(causal)),
         int(window or 0), float(attn_softcap or 0.0), kv_len,
         1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream)
     if err:

@@ -8,10 +8,18 @@ requests, WCET report (paper phases Init/Trigger/Wait/Dispose).
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --streams --elastic --metrics-file /tmp/lk.jsonl
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+        --requests 4 --max-new 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+        --reduced --device cpu
+
 Weights are random, drawn on the device from ``--seed``. The flags are the
 reference's (``repro.launch.serve``) plus ``--device`` (default ``cuda``;
-no silent CPU fallback); the encdec/vlm prompt extras wait for those
-families. ``main`` returns a :class:`ServeReport`, so callers read the
+no silent CPU fallback). An encdec arch (whisper-tiny) gives each request
+its 1500 stub frames (``encoder_frames`` x ``d_model``), drawn from the
+same numpy generator as the prompts and in the reference's order, and
+takes the host prefill for them; the vlm prefix extras wait for that
+family. ``main`` returns a :class:`ServeReport`, so callers read the
 results without parsing stdout.
 """
 from __future__ import annotations
@@ -63,13 +71,28 @@ class ServeReport:
     elastic: Optional[dict] = None
 
 
-def _drive(args, engine, collector, prompts):
+def _requests(cfg, n: int, seed: int):
+    """``n`` prompts of 4-23 tokens and, for an encdec arch, each one's
+    stub frames: the reference's draws, in its order."""
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, rng.integers(4, 24))
+               for _ in range(n)]
+    extras = None
+    if cfg.family == "encdec":
+        extras = [{"frames": rng.normal(
+            size=(cfg.encoder_frames, cfg.d_model)).astype(np.float32)}
+            for _ in range(n)]
+    return prompts, extras
+
+
+def _drive(args, engine, collector, prompts, extras):
     """Serve ``prompts``: through the stream frontend (``--streams``: a
     2-token warm-up stream first, then every ``--high-every``-th stream
     HIGH, each arrival followed by one poll) or ``engine.generate``.
     Returns (token lists, the frontend or None)."""
     if not args.streams:
-        return engine.generate(prompts, max_new_tokens=args.max_new), None
+        return engine.generate(prompts, max_new_tokens=args.max_new,
+                               extras=extras), None
     fe = StreamFrontend(engine, collector=collector)
     fe.open_stream(prompts[0], max_new_tokens=2)      # warm WCETs
     fe.serve()
@@ -171,6 +194,11 @@ def main(argv=None) -> ServeReport:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    prompts, extras = _requests(cfg, args.requests, args.seed)
+    if args.streams and extras is not None:
+        raise SystemExit("--streams does not support encdec/vlm archs "
+                         "(prompt extras need the host prefill path with "
+                         "per-request tensors)")
     model = build(cfg, ShardCtx.single(kind="decode"), device=args.device)
     params = model.init(args.seed)
 
@@ -218,12 +246,8 @@ def main(argv=None) -> ServeReport:
         # (rate-limited) chance to evaluate, so the serve loop needs no
         # explicit tick plumbing
         collector.subscribe(lambda ev: elastic.maybe_tick())
-    rng = np.random.default_rng(args.seed)
-    prompts = [rng.integers(0, cfg.vocab_size, rng.integers(4, 24))
-               for _ in range(args.requests)]
-
     try:
-        outs, fe = _drive(args, engine, collector, prompts)
+        outs, fe = _drive(args, engine, collector, prompts, extras)
     except BaseException:
         if pump is not None:
             pump.stop()           # no pump thread outlives a failed run

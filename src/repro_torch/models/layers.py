@@ -1,5 +1,5 @@
-"""Shared building blocks: parameter init, norms, embeddings, RoPE, MLP —
-the port of ``repro.models.layers``.
+"""Shared building blocks: parameter init, norms, embeddings, RoPE,
+sinusoidal positions, MLP — the port of ``repro.models.layers``.
 
 Parameters keep the reference's tree and axis layouts (``w_in (d, d_ff)``,
 ``table (V, d)``, ...), so converting a JAX parameter tree is a per-leaf
@@ -76,6 +76,14 @@ def rms_norm(x, weight, eps: float):
     return (y * weight.float()).to(x.dtype)
 
 
+def layer_norm(x, weight, bias, eps: float):
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embedding
 # ---------------------------------------------------------------------------
@@ -98,6 +106,33 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Sinusoidal positions (encdec)
+# ---------------------------------------------------------------------------
+
+def _sinusoid(pos, d_model: int):
+    """pos: (n,) f32 -> (n, d_model) f32: sin at even, cos at odd columns."""
+    div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32,
+                                 device=pos.device)
+                    * (-math.log(10000.0) / d_model))
+    half = pos[:, None] * div
+    out = torch.zeros((pos.shape[0], d_model), dtype=torch.float32,
+                      device=pos.device)
+    out[:, 0::2] = torch.sin(half)
+    out[:, 1::2] = torch.cos(half)
+    return out
+
+
+def sinusoidal_at(positions, d_model: int):
+    """Sinusoidal embedding at arbitrary integer positions. (B,) -> (B,d)."""
+    return _sinusoid(positions.float(), d_model)
+
+
+def sinusoidal_positions(num_pos: int, d_model: int, device="cpu"):
+    return _sinusoid(torch.arange(num_pos, dtype=torch.float32,
+                                  device=device), d_model)
 
 
 # ---------------------------------------------------------------------------

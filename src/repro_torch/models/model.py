@@ -1,5 +1,5 @@
-"""Model bundle — the port of ``repro.models.model`` (dense and ssm
-families).
+"""Model bundle — the port of ``repro.models.model`` (dense, ssm, hybrid
+and encdec families).
 
 ``build(cfg, device=...)`` returns a ``Model`` whose methods are plain
 functions on tensors:
@@ -12,8 +12,10 @@ functions on tensors:
 
 ``params_from_jax(np_tree, cfg, device)`` turns the reference's parameter
 tree (``jax.tree.map(np.asarray, repro_model.init(key))``) into the port's
-tensors: the layouts are the same, so it is a per-leaf copy. The training
-loss waits for the training slice.
+tensors: the layouts are the same (the hybrid's lists of per-layer trees
+included), so it is a per-leaf copy. An encdec ``batch`` carries
+``frames`` (B, F, d_model) beside ``tokens`` for the prefill. The
+training loss waits for the training slice.
 """
 from __future__ import annotations
 
@@ -28,9 +30,12 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.persistent import check_device, tree_map
 from repro_torch.distributed.sharding import ShardCtx
+from repro_torch.models import encdec as encdec_mod
+from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (Init, embed_lookup, embed_params,
-                                       rms_norm, unembed)
+                                       rms_norm, sinusoidal_at,
+                                       sinusoidal_positions, unembed)
 
 
 @dataclass
@@ -45,8 +50,9 @@ class Model:
 
 
 def params_from_jax(np_tree, cfg: ModelConfig, device) -> dict:
-    """The reference's parameter tree (numpy leaves) as the port's tensors
-    on ``device``, in ``cfg.param_dtype`` — the layouts already agree."""
+    """The reference's parameter tree (numpy leaves; dicts and lists) as
+    the port's tensors on ``device``, in ``cfg.param_dtype`` — the layouts
+    already agree."""
     dt = getattr(torch, cfg.param_dtype)
     return tree_map(
         lambda a: torch.tensor(np.asarray(a, np.float32), dtype=dt,
@@ -67,10 +73,16 @@ def build(cfg: ModelConfig, ctx: ShardCtx | None = None, *,
 
     def init(seed: int):
         b = Init(seed, getattr(torch, cfg.param_dtype), device)
-        return {"embed": embed_params(b, cfg.padded_vocab, cfg.d_model,
-                                      cfg.tie_embeddings),
-                "final_norm": b.p((cfg.d_model,), init="ones"),
-                "stack": tfm.stack_params(b, cfg)}
+        p = {"embed": embed_params(b, cfg.padded_vocab, cfg.d_model,
+                                   cfg.tie_embeddings),
+             "final_norm": b.p((cfg.d_model,), init="ones")}
+        if cfg.family == "hybrid":
+            p["stack"] = hybrid_mod.hybrid_params(b, cfg)
+        elif cfg.family == "encdec":
+            p["stack"] = encdec_mod.encdec_params(b, cfg)
+        else:
+            p["stack"] = tfm.stack_params(b, cfg)
+        return p
 
     def _embed(p, tokens):
         x = embed_lookup(p["embed"], tokens, cfg.d_model).to(dtype)
@@ -78,16 +90,33 @@ def build(cfg: ModelConfig, ctx: ShardCtx | None = None, *,
             x = x * math.sqrt(cfg.d_model)
         return x
 
+    def _backbone(p, x, *, mode, pos, caches=None, valid_len=None,
+                  enc_out=None):
+        kw = dict(mode=mode, pos=pos, caches=caches, valid_len=valid_len,
+                  plain=plain_kernels)
+        if cfg.family == "hybrid":
+            return hybrid_mod.hybrid_forward(p["stack"], x, cfg, ctx, **kw)
+        if cfg.family == "encdec":
+            x, caches = encdec_mod.decoder_forward(p["stack"], x, enc_out,
+                                                   cfg, ctx, **kw)
+            return x, {}, caches
+        return tfm.forward_stack(p["stack"], x, cfg, ctx, **kw)
+
     def prefill(params, batch, max_seq: int):
         """Run the prompt; returns (last-position logits, caches padded to
         max_seq)."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = _embed(params, tokens)
+        enc_out = None
+        if cfg.family == "encdec":
+            enc_out = encdec_mod.encode(params["stack"], batch["frames"],
+                                        cfg, ctx, plain=plain_kernels)
+            x = x + sinusoidal_positions(S, cfg.d_model,
+                                         x.device)[None].to(dtype)
         pos = torch.arange(S, device=tokens.device)[None].expand(B, S)
-        x, _, caches = tfm.forward_stack(params["stack"], x, cfg, ctx,
-                                         mode="prefill", pos=pos,
-                                         plain=plain_kernels)
+        x, _, caches = _backbone(params, x, mode="prefill", pos=pos,
+                                 enc_out=enc_out)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = unembed(params["embed"], x[:, -1:, :], cfg.tie_embeddings,
                          cfg.logit_softcap, ctx)
@@ -112,17 +141,21 @@ def build(cfg: ModelConfig, ctx: ShardCtx | None = None, *,
         """tokens: (B,1) int32; positions: (B,) int32 write index of this
         token. Returns (logits (B,1,V), caches updated in place)."""
         x = _embed(params, tokens)
-        valid_len = positions + 1
-        x, _, caches = tfm.forward_stack(
-            params["stack"], x, cfg, ctx, mode="decode",
-            pos=positions[:, None], caches=caches, valid_len=valid_len,
-            plain=plain_kernels)
+        if cfg.family == "encdec":
+            x = x + sinusoidal_at(positions, cfg.d_model).to(dtype)[:, None]
+        x, _, caches = _backbone(params, x, mode="decode",
+                                 pos=positions[:, None], caches=caches,
+                                 valid_len=positions + 1)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = unembed(params["embed"], x, cfg.tie_embeddings,
                          cfg.logit_softcap, ctx)
         return logits, caches
 
     def init_caches(batch: int, max_seq: int):
+        if cfg.family == "hybrid":
+            return hybrid_mod.hybrid_init_caches(cfg, batch, max_seq, device)
+        if cfg.family == "encdec":
+            return encdec_mod.encdec_init_caches(cfg, batch, max_seq, device)
         return tfm.init_caches(cfg, batch, max_seq, device)
 
     return Model(cfg=cfg, ctx=ctx, device=device, init=init, prefill=prefill,

@@ -1,5 +1,7 @@
 """Decoder-only stack assembly, dense and ssm families — the port of
-``repro.models.transformer``.
+``repro.models.transformer`` (the hybrid and encdec families assemble
+their own stacks from its layers: ``models/hybrid.py``,
+``models/encdec.py``).
 
 Parameters keep the reference's stacked layout (``stack["blk{i}"]`` leaves
 carry a leading layers axis), but the reference's ``lax.scan`` over that
@@ -24,7 +26,7 @@ from repro_torch.models.layers import (Init, apply_rope, mlp_apply,
 # Period spec
 # ---------------------------------------------------------------------------
 
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid", "encdec")
 
 
 def period_spec(cfg) -> list[tuple[str, dict]]:
@@ -140,6 +142,11 @@ def _layer(tree, li: int):
     return tree[li]
 
 
+def stack_layers(trees: list):
+    """Per-layer trees stacked leaf by leaf along a new leading axis."""
+    return tree_map(lambda *ls: torch.stack(ls), *trees)
+
+
 def forward_stack(params, x, cfg, ctx, *, mode: str, pos,
                   caches=None, valid_len=None, plain: bool = False):
     """Run the layer stack.
@@ -164,8 +171,7 @@ def forward_stack(params, x, cfg, ctx, *, mode: str, pos,
             per_layer[key].append(nc)
     if mode == "decode":
         return x, {}, caches
-    new_caches = {key: tree_map(lambda *ls: torch.stack(ls), *cs)
-                  for key, cs in per_layer.items()}
+    new_caches = {key: stack_layers(cs) for key, cs in per_layer.items()}
     return x, {}, new_caches
 
 

@@ -301,14 +301,18 @@ class ServingEngine:
         return ticket
 
     def add_request(self, request_id: int, prompt: np.ndarray,
-                    max_new_tokens: int = 32) -> Optional[int]:
+                    max_new_tokens: int = 32,
+                    extras: Optional[dict] = None) -> Optional[int]:
         """Prefill a prompt into a free slot. Returns the slot or None.
 
         NON-BLOCKING: returns at submission time. With ``chunked_prefill``
         the prompt runs as a chunked OP_PREFILL item through the
         dispatcher and the OP_INSERT is chained onto its resolution;
         otherwise the host runs the prefill here (enqueued on the stream)
-        and submits the insert."""
+        and submits the insert. A prompt with ``extras`` (encdec frames:
+        {name: array without the batch axis}) always takes the host
+        prefill, which receives them as batch-1 tensors on the engine's
+        device."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         L = int(prompt.shape[0])
         # the prefill emits the first generated token, so the decode loop
@@ -318,7 +322,7 @@ class ServingEngine:
         if slot is None:
             return None
         slot_obj = self.slots.slots[slot]
-        chunked = self.chunked_prefill
+        chunked = self.chunked_prefill and not extras
         tc = self.dispatcher.telemetry
         if tc is not None:
             tc.emit(EV_ENGINE, cluster=self.cluster, request_id=request_id,
@@ -343,6 +347,9 @@ class ServingEngine:
             ticket.on_complete(_chain)
         else:
             batch = {"tokens": torch.from_numpy(prompt[None]).to(self.device)}
+            if extras:
+                batch.update({k: torch.from_numpy(np.asarray(v)[None]).to(
+                    self.device) for k, v in extras.items()})
             logits, caches = self._prefill(batch, L)
             first = torch.argmax(logits[0, -1, :]).to(torch.int32)
             self._stage(caches, first, L, slot)
@@ -391,17 +398,19 @@ class ServingEngine:
         return out
 
     # ------------------------------------------------------------------
-    def generate(self, prompts: list[np.ndarray],
-                 max_new_tokens: int = 16) -> list[list[int]]:
+    def generate(self, prompts: list[np.ndarray], max_new_tokens: int = 16,
+                 extras: Optional[list] = None) -> list[list[int]]:
         """Simple driver: admit all (queueing when full), decode until done
-        (continuous batching: freed slots are refilled between steps)."""
+        (continuous batching: freed slots are refilled between steps).
+        ``extras``: one dict a prompt (see ``add_request``), or None."""
         queue = deque(enumerate(prompts))
         record: dict[int, Any] = {}
 
         def admit():
             while queue:
                 rid, p = queue[0]
-                slot = self.add_request(rid, p, max_new_tokens)
+                ex = extras[rid] if extras else None
+                slot = self.add_request(rid, p, max_new_tokens, ex)
                 if slot is None:
                     return
                 record[rid] = self.slots.slots[slot]

@@ -44,7 +44,8 @@ def test_port_imports_neither_jax_nor_reference():
               "kernels.persistent.kernel", "kernels.persistent.ops",
               "core.mega", "core.clusters", "core.elastic", "core.system",
               "system", "kernels.ssd_scan.kernel", "kernels.ssd_scan.ops",
-              "models.ssm", "configs.mamba2_780m"):
+              "models.ssm", "configs.mamba2_780m", "models.hybrid",
+              "models.encdec", "configs.zamba2_7b", "configs.whisper_tiny"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -118,15 +119,17 @@ def test_entry_points_raise_without_cuda():
         build(cfg, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         build(cfg)                                   # the default is cuda
-    with pytest.raises(RuntimeError, match="CUDA"):
-        build(get_config("mamba2-780m").reduced())
+    for arch in ("mamba2-780m", "zamba2-7b", "whisper-tiny"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build(get_config(arch).reduced())
     with pytest.raises(RuntimeError, match="CUDA"):
         PersistentRuntime([("nop", lambda s, d: (s, s))],
                           result_template=torch.zeros(1))
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--reduced", "--requests", "1"])
-    with pytest.raises(RuntimeError, match="CUDA"):
-        serve.main(["--arch", "mamba2-780m", "--reduced", "--requests", "1"])
+    for arch in ("mamba2-780m", "zamba2-7b", "whisper-tiny"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.main(["--arch", arch, "--reduced", "--requests", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--smoke", "--streams"])        # --smoke keeps cuda
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -150,26 +153,40 @@ def test_entry_points_raise_without_cuda():
 
 
 # The reference's __init__ files define no __all__ (repro.core.telemetry
-# aside): their public names are the names they import. The port must
-# offer each, except the TPU entry point and what the roadmap still queues.
+# aside): their public names are the names they import; a plain module's
+# are the functions and classes it defines. The port must offer each,
+# except the TPU entry point and what the roadmap still queues.
 NOT_PORTED = {"persistent_drain_pallas",      # the Pallas TPU launch
-              "make_cluster_mesh"}            # the distribution slice
+              "make_cluster_mesh",            # the distribution slice
+              # the cache trees' logical axes: the distribution slice
+              "hybrid_cache_axes", "encdec_cache_axes",
+              # the reference's parameter factory class: the port's
+              # models.layers.Init draws the same scales from a
+              # torch.Generator; its logical-axes mode waits for the
+              # distribution slice
+              "Builder"}
 
 
 @pytest.mark.parametrize("name", [
     "repro.core", "repro.core.telemetry", "repro.serving",
     "repro.kernels.decode_attention", "repro.kernels.flash_attention",
     "repro.kernels.persistent", "repro.kernels.ssd_scan",
+    "repro.models.hybrid", "repro.models.encdec", "repro.models.layers",
 ])
 def test_reference_public_names_importable_from_port(name):
     import importlib
     import types
     ref = importlib.import_module(name)
     port = importlib.import_module("repro_torch" + name[len("repro"):])
-    public = getattr(ref, "__all__", None) or [
-        k for k, v in vars(ref).items()
-        if not k.startswith("_") and k != "annotations"
-        and not (isinstance(v, types.ModuleType)
-                 and v.__name__.startswith(name + "."))]
+    if not hasattr(ref, "__path__"):
+        public = [k for k, v in vars(ref).items() if not k.startswith("_")
+                  and getattr(v, "__module__", None) == name]
+    else:
+        public = getattr(ref, "__all__", None) or [
+            k for k, v in vars(ref).items()
+            if not k.startswith("_") and k != "annotations"
+            and not (isinstance(v, types.ModuleType)
+                     and v.__name__.startswith(name + "."))]
+    assert public, name
     missing = sorted(set(public) - NOT_PORTED - set(vars(port)))
     assert not missing, missing

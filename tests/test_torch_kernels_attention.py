@@ -17,7 +17,7 @@ from repro.kernels.decode_attention import decode_attention as j_decode
 from repro.kernels.decode_attention import decode_attention_ref
 from repro.kernels.flash_attention import attention_ref
 from repro.kernels.flash_attention import flash_attention as j_flash
-from repro.models.attention import decode_attention_local
+from repro.models.attention import decode_attention_local, flash_xla
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
 from repro_torch.kernels.decode_attention import kernel as DK
@@ -60,6 +60,10 @@ FLASH_CASES = {
                            kw=dict(window=100)),
     "seq_len_200_256": dict(B=1, S=256, Hq=2, Hkv=1, D=32,
                             kw=dict(causal=False, seq_len=200)),
+    # zamba2-7b's head dim, 112 (the card kernel computes at 128 over
+    # zero-filled columns)
+    "d112_gqa_causal": dict(B=2, S=32, Hq=4, Hkv=2, D=112, kw={}),
+    "d112_window": dict(B=1, S=40, Hq=2, Hkv=2, D=112, kw=dict(window=8)),
 }
 
 
@@ -79,6 +83,40 @@ def test_flash_plain_matches_pallas_and_oracle(case):
     want_ref = np.asarray(attention_ref(*map(jnp.asarray, (q, k, v)), **kw))
     np.testing.assert_allclose(got, want_pallas, atol=F32_ATOL, rtol=0)
     np.testing.assert_allclose(got, want_ref, atol=F32_ATOL, rtol=0)
+
+
+# Unequal query and key lengths (whisper's cross-attention: a prompt
+# against the encoder's frames), non-causal. The reference's model path
+# computes them with flash_xla (repro.models.attention.attention on the
+# CPU); its Pallas kernel (flash_attention_pallas) takes its key blocks
+# from q's length and so reads only the first Sq keys (max error 1.64
+# against flash_xla at q 8 x 64, k/v 40 x 64): it is no oracle here.
+CROSS_CASES = {
+    # (B, Sq, Skv, Hq, Hkv, D, kwargs)
+    "prompt_17_vs_40": (1, 17, 40, 4, 2, 32, {}),
+    "one_token_vs_48": (2, 1, 48, 4, 4, 32, {}),
+    "more_queries_than_keys": (1, 40, 9, 2, 1, 32, {}),
+    "d112_8_vs_40": (1, 8, 40, 2, 2, 112, {}),
+    "seq_len_30_of_40": (1, 9, 40, 2, 1, 32, dict(seq_len=30)),
+    "softcap": (1, 12, 33, 4, 2, 64, dict(attn_softcap=5.0)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CROSS_CASES))
+def test_flash_plain_unequal_lengths_match_flash_xla(case):
+    B, Sq, Skv, Hq, Hkv, D, kw = CROSS_CASES[case]
+    q, k, v = _qkv(6, B, Skv, Hq, Hkv, D, Sq=Sq)
+    before = flash_attention.launches
+    got = flash_attention(*_t(q, k, v), causal=False, **kw).numpy()
+    assert flash_attention.launches == before
+    assert got.shape == q.shape
+    want = np.asarray(flash_xla(*map(jnp.asarray, (q, k, v)), causal=False,
+                                block_q=16, block_kv=16, **kw))
+    np.testing.assert_allclose(got, want, atol=F32_ATOL, rtol=0)
+    # a causal mask or a window needs one length for queries and keys
+    for bad in (dict(causal=True), dict(causal=False, window=4)):
+        with pytest.raises(ValueError, match="length"):
+            flash_attention(*_t(q, k, v), **bad)
 
 
 def _cuda_constants(path) -> dict:
@@ -144,6 +182,10 @@ DECODE_CASES = {
                    kw=dict(window=8)),
     "softcap": dict(B=2, S=32, Hq=4, Hkv=2, D=32, valid=[5, 32],
                     kw=dict(attn_softcap=5.0)),
+    # zamba2-7b's head dim: 7 k16 steps of Q.K^T, 14 n8 tiles of P.V on
+    # the card
+    "d112_ragged": dict(B=3, S=64, Hq=4, Hkv=4, D=112, valid=[64, 1, 30],
+                        kw={}),
 }
 
 
@@ -319,7 +361,7 @@ def test_decode_split_count_and_cuda_geometry():
         assert ring + extra <= H100_SMEM_OPTIN, (dtype, d)
         assert (kstride * size) % 16 == 0
     assert k["MMA_BK"] == 16 * k["MMA_WARPS"]
-    for d in (64, 128):
+    for d in (64, 112, 128):
         stages = k[f"STAGES_MMA_D{d}"]
         row = (d + 8) * 2
         ring = stages * 2 * k["MMA_BK"] * row

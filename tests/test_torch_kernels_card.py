@@ -95,6 +95,19 @@ GPU_FLASH = [
     (1, 64, 8, 2, 128, torch.bfloat16, dict(causal=False, seq_len=33)),
     (3, 1, 4, 2, 64, torch.bfloat16, {}),
     (1, 65, 8, 2, 128, torch.bfloat16, {}),
+    # D = 112 (zamba2-7b's shared block, 32/32 heads): the bf16 kernel at
+    # its 128-wide compute width over 112-wide tensor maps, the serve
+    # path's short prompt and the 2048-token prompt, a window, a ragged
+    # seq_len with two sequences; the f32 FFMA kernel (4 threads a row,
+    # 28 dims each) causal and with a window and softcap
+    (1, 17, 32, 32, 112, torch.bfloat16, {}),
+    (1, 2048, 32, 32, 112, torch.bfloat16, {}),
+    (1, 300, 8, 8, 112, torch.bfloat16, dict(window=100)),
+    (2, 65, 8, 8, 112, torch.bfloat16, dict(causal=False, seq_len=40)),
+    (2, 150, 8, 4, 112, torch.float32, {}),
+    (1, 200, 4, 4, 112, torch.float32, dict(window=48, attn_softcap=30.0)),
+    # whisper-tiny's encoder: 1500 frames, 6/6 heads x 64, non-causal
+    (1, 1500, 6, 6, 64, torch.bfloat16, dict(causal=False)),
 ]
 
 
@@ -111,6 +124,40 @@ def test_flash_kernel_matches_plain_on_card(cuda, B, S, Hq, Hkv, D, dtype, kw):
     atol = BF16_ATOL if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
     _assert_softcap_matters(flash_attention_plain, (q, k, v), kw, atol)
+
+
+GPU_FLASH_CROSS = [
+    # (B, Sq, Skv, Hq, Hkv, D, dtype, kwargs), non-causal: whisper-tiny's
+    # cross-attention (a 4-23-token prompt, or one token, against 1500
+    # encoder frames; the short-prompt instance chosen on Sq), f32 too;
+    # two consumer warpgroups over more keys than queries with a seq_len;
+    # fewer keys than queries at D = 112, bf16 and f32
+    (1, 17, 1500, 6, 6, 64, torch.bfloat16, {}),
+    (1, 1, 1500, 6, 6, 64, torch.bfloat16, {}),
+    (4, 1, 1500, 6, 6, 64, torch.bfloat16, {}),
+    (1, 23, 1500, 6, 6, 64, torch.float32, {}),
+    (2, 100, 300, 8, 2, 128, torch.bfloat16, dict(seq_len=250)),
+    (1, 300, 40, 4, 4, 112, torch.bfloat16, {}),
+    (1, 70, 130, 4, 2, 112, torch.float32, dict(seq_len=100)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,dtype,kw", GPU_FLASH_CROSS)
+def test_flash_kernel_unequal_lengths_match_plain_on_card(cuda, B, Sq, Skv,
+                                                         Hq, Hkv, D, dtype,
+                                                         kw):
+    q, k, v = _qkv(12, B, Skv, Hq, Hkv, D, Sq=Sq)
+    q, k, v = [t.to(cuda, dtype) for t in _t(q, k, v)]
+    kw = dict(kw, causal=False)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.shape == q.shape
+    want = flash_attention_plain(q, k, v, **kw)
+    atol = BF16_ATOL if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
 
 
 @pytest.mark.gpu
@@ -170,6 +217,14 @@ GPU_DECODE = [
      dict(window=4096, attn_softcap=50.0)),
     (1, 4609, 8, 4, 256, torch.bfloat16, [4609],
      dict(window=4096, attn_softcap=50.0)),
+    # zamba2-7b's shared block at D = 112 (32/32 heads): the serve shape,
+    # B*Hkv = 128 clusters, ragged; a long cache with a window; f32 (28
+    # lanes of 4 dims in P.V). whisper-tiny's decode cross-attention: every
+    # slot over all 1500 frames (6/6 heads x 64)
+    (4, 128, 32, 32, 112, torch.bfloat16, [128, 1, 77, 64], {}),
+    (2, 3000, 8, 8, 112, torch.bfloat16, [3000, 1200], dict(window=1000)),
+    (2, 300, 8, 4, 112, torch.float32, [300, 45], {}),
+    (4, 1500, 6, 6, 64, torch.bfloat16, [1500] * 4, {}),
 ]
 
 
@@ -248,6 +303,11 @@ def test_kernel_wrappers_reject_what_they_cannot_take(cuda):
     q = torch.zeros((1, 8, 4, 48), device=cuda)            # D=48
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q, q[:, :, :2], q[:, :, :2])
+    q = torch.zeros((1, 8, 4, 64), device=cuda)
+    kv = torch.zeros((1, 40, 2, 64), device=cuda)          # Skv != Sq
+    for kw in (dict(causal=True), dict(causal=False, window=8)):
+        with pytest.raises(ValueError, match="length"):
+            flash_attention(q, kv, kv, **kw)
     q = torch.zeros((1, 1, 4, 64), device=cuda)
     k = torch.zeros((1, 16, 2, 64), device=cuda)
     with pytest.raises(TypeError, match="int32"):
@@ -316,6 +376,11 @@ GPU_SSD = [
     (1, 8, 256, 48, 64, 128),
     (2, 1, 200, 48, 64, 128),
     (1, 2, 150, 6, 62, 202),
+    # zamba2-7b's SSM layers: H = 112 heads, P = 64, N = 64 (the serve
+    # shape, 2048 tokens, four 256-token prompts)
+    (1, 1, 17, 112, 64, 64),
+    (1, 8, 256, 112, 64, 64),
+    (4, 1, 256, 112, 64, 64),
 ]
 
 

@@ -1,7 +1,12 @@
 """The port's ServingEngine against the reference's: reduced llama3-8b and
 mamba2-780m with the reference's parameters converted, 5 requests through
 2 slots (slot reuse), host prefill and chunked prefill — the generated
-tokens must be identical, request by request."""
+tokens must be identical, request by request. The serve CLI: on the CPU
+it serves every request; on the reference's weights it serves the
+reference CLI's tokens for zamba2-7b and whisper-tiny (whose frames are
+drawn from the seed after the prompts)."""
+import re
+
 import jax
 import numpy as np
 import pytest
@@ -70,3 +75,40 @@ def test_serve_cli_on_cpu(tmp_path, extra):
     assert ds["met"] == ds["n"] and ds["n"] >= 3 + 2    # inserts + steps
     assert trace.stat().st_size > 0
     assert report.tracker.time_phases()["trigger"].count > 0
+
+
+def _serve_tokens(out: str) -> list:
+    return [eval(m) for m in re.findall(r"\[serve\] req\d+: (\[.*\])", out)]
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "whisper-tiny"])
+def test_serve_cli_serves_the_reference_tokens(arch, capsys, monkeypatch):
+    """The port's serve entry point, its model given the reference's
+    weights for the seed, serves the reference CLI's tokens: the prompts
+    (and whisper-tiny's frames) come from one numpy generator in the same
+    order; ``--streams`` refuses an arch with prompt extras."""
+    from repro.launch import serve as j_serve
+    from repro_torch.launch import serve
+    argv = ["--arch", arch, "--reduced", "--requests", "3", "--max-new",
+            "3", "--max-batch", "2", "--max-seq", "32", "--seed", "4"]
+    j_serve.main(argv)
+    want = _serve_tokens(capsys.readouterr().out)
+    j_model = j_build(j_get_config(arch).reduced(),
+                      JShardCtx.single(kind="decode"))
+    own_build = serve.build
+
+    def build_with_reference_weights(cfg, ctx, device):
+        model = own_build(cfg, ctx, device=device)
+        model.init = lambda seed: params_from_jax(
+            jax.tree.map(np.asarray, j_model.init(jax.random.key(seed))),
+            cfg, device)
+        return model
+
+    monkeypatch.setattr(serve, "build", build_with_reference_weights)
+    report = serve.main(argv + ["--device", "cpu"])
+    assert len(want) == 3 and report.outputs == want
+    ds = report.deadline_stats
+    assert ds["met"] == ds["n"]
+    if arch == "whisper-tiny":
+        with pytest.raises(SystemExit, match="streams"):
+            serve.main(argv + ["--device", "cpu", "--streams"])

@@ -22,7 +22,7 @@ from repro.kernels.ssd_scan import ssd_ref as j_ssd_ref
 from repro.kernels.ssd_scan.kernel import ssd_chunk_pallas
 from repro.models import build as j_build
 from repro.models import ssm as j_ssm
-from repro_torch.configs import get_config
+from repro_torch.configs import MoEConfig, get_config
 from repro_torch.distributed import ShardCtx
 from repro_torch.kernels.ssd_scan import kernel as K6
 from repro_torch.kernels.ssd_scan import ssd, ssd_chunk_plain, ssd_ref
@@ -62,7 +62,10 @@ def chunk_inputs(B, S, chunk, H, P, N, seed=0):
 
 
 @pytest.mark.parametrize("B,S,chunk,H,P,N", [(2, 64, 16, 4, 16, 16),
-                                             (2, 128, 32, 8, 16, 32)])
+                                             (2, 128, 32, 8, 16, 32),
+                                             # zamba2-7b's 112 heads and
+                                             # state 64 (P cut to 8)
+                                             (1, 64, 32, 112, 8, 64)])
 def test_chunk_plain_matches_pallas_interpret(B, S, chunk, H, P, N):
     args = chunk_inputs(B, S, chunk, H, P, N, seed=1)
     want_y, want_s = ssd_chunk_pallas(*map(jnp.asarray, args),
@@ -139,15 +142,17 @@ def _ssd_chunk_3xtf32(x, dt, cum, Bm, Cm):
 
 
 @pytest.mark.parametrize("case", ["mamba2_width", "scaled100",
-                                  "near_underflow"])
+                                  "near_underflow", "zamba2_width"])
 def test_chunk_3xtf32_emulation_meets_plain_contract(case):
     """The kernel's split, k-steps and fresh accumulators stay within 1e-4
     of ``ssd_chunk_plain`` at mamba2-780m's widths (L=256, N=128, P=64;
-    two heads, two chunks); with x, B and C times 100 (the split's accuracy
-    is relative: the outputs, 100^3 (y) and 100^2 (states) times larger, are
-    compared in the inputs' units, divided by those factors); with decays
-    near underflow (dt at dt_max 0.1, A = -8)."""
-    B, C, L, H, P, N = 1, 2, 256, 2, 64, 128
+    two heads, two chunks) and at zamba2-7b's state width (N=64); with x,
+    B and C times 100 (the split's accuracy is relative: the outputs, 100^3
+    (y) and 100^2 (states) times larger, are compared in the inputs' units,
+    divided by those factors); with decays near underflow (dt at dt_max
+    0.1, A = -8)."""
+    N = 64 if case == "zamba2_width" else 128
+    B, C, L, H, P = 1, 2, 256, 2, 64
     x, dt, A, Bm, Cm = ssd_inputs(B, C * L, H, P, N, seed=5)
     unit_y = unit_s = np.float32(1)
     if case == "scaled100":
@@ -316,9 +321,11 @@ def test_reduced_config_and_init_follow_reference():
 
 
 @pytest.mark.parametrize("family,extra", [
-    ("hybrid", dict(shared_attn_every=2)), ("encdec", dict(encoder_layers=2)),
+    ("moe", dict(moe=MoEConfig(num_experts=4, top_k=2))),
     ("vlm", dict(ssm=None))])
 def test_unported_families_still_raise(family, extra):
+    """moe and vlm wait for a later slice (hybrid and encdec are ported:
+    tests/test_torch_hybrid.py, tests/test_torch_encdec.py)."""
     cfg = dataclasses.replace(get_config("mamba2-780m").reduced(),
                               family=family, **extra)
     with pytest.raises(NotImplementedError, match="not ported"):
