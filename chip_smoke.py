@@ -81,6 +81,29 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    queries against 1500 keys); K4 at D=112 (the 4-slot serve shape, 128
    clusters) and over whisper's 1500 frames (its decode cross-attention's
    route); K6 at 112 heads, N=64 (S=17 and 2048);
+4f. the moe and vlm families at full width with their depth cut to what
+   one card holds in bf16 (every width as published): llama4-maverick
+   (2 of 48 layers: one dense and one 128-expert MoE layer), grok-1 (4 of
+   64 layers, 8 experts top-2, softcaps 30) and internvl2-76b (24 of 80
+   layers, 256 stub patch embeddings a request, 512-position cache), each
+   served with host prefill (K5 layers x 4 prompts) and chunked prefill
+   (K5 0 for moe; the vlm requests take the host prefill there too), peak
+   memory printed; a MoE model's logits against the plain path with each
+   MoE layer's top-k choices recorded on both paths through
+   ``models.moe.route``: flipped choices counted, each a tie only where
+   the plain path's router-logit gap at the top-k boundary is at most
+   twice the largest router-logit difference between the paths, then the
+   plain path replaying the kernel path's choices within the logits
+   tolerance, argmax equal; internvl2-76b's logits with the 256 patch
+   embeddings in the prompt against the plain path. Their kernel rows
+   (phase 3d, after phase 3c): K5/K4 at 40/8 and 48/8 (softcap 30) heads
+   x 128, K5 at 64/8 x 128 over 273 tokens, K4 over 262-290 of 512
+   positions; K5/K4 at every reduced config's 4/2 heads x 32 in f32 and
+   bf16; K6 at the reduced SSM shape (16 heads, P=16, N=16);
+4g. ``serve --smoke`` with its default device for every registered arch
+   (the reduced configs: f32, head dim 32): every request completes,
+   ``met == n``, K5/K4 launched (K6 for ssm and hybrid), no plain
+   attention or SSD called;
 5. tile kernels: the drain megakernel (K1), its flight-recorder variant
    (K2) and the legacy executor (K3) against their plain versions at
    C = 132 clusters (one worker per SM), Q = 64 rows, nbuf = 8 tiles, on a
@@ -142,12 +165,12 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.core import mailbox as mb  # noqa: E402
 from repro_torch.core.dispatcher import Dispatcher  # noqa: E402
 from repro_torch.core.mega import MegaRuntime, mega_work_classes  # noqa: E402
-from repro_torch.core.persistent import reap_deferred  # noqa: E402
+from repro_torch.core.persistent import reap_deferred, tree_leaves  # noqa: E402
 from repro_torch.core.sched import EdfPolicy  # noqa: E402
 from repro_torch.core.telemetry import (EV_CHUNK_RETIRE,  # noqa: E402
                                         EV_TRIGGER, TraceCollector)
 from repro_torch.core.telemetry.events import now_us  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, list_configs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import persistent as PK  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
@@ -156,8 +179,11 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_chunk, ssd_chunk_plain)
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.launch import serve, top, trace  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import build  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.system import LkSystem  # noqa: E402
 
 # NVIDIA H100 SXM data sheet (dense): HBM rate and peak operation rates by
@@ -283,21 +309,32 @@ def host_ms(fn, iters: int = 20) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def kernels_per_call(fn, calls: int = 10):
+def kernels_per_call(fn, calls: int = 10, passes: int = 3):
     """(device kernels an eager ``fn`` call launches, their names), read
     from a ``torch.profiler`` pass over ``calls`` calls; (None, []) where
-    the profiler records no device activity."""
+    the profiler records no device activity. Every ``fn`` here launches at
+    least one kernel a call, so a pass that records fewer kernels than
+    calls has lost activity records (seen on the card: 8 of 10): it is
+    logged and the pass made again, up to ``passes`` passes; the last
+    pass's count is returned either way."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    if not kernels:
-        return None, []
+    for n in range(passes):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        if not kernels:
+            return None, []
+        if len(kernels) >= calls:
+            break
+        log(f"kernels_per_call: profiler pass {n + 1} recorded "
+            f"{len(kernels)} device kernels for {calls} calls (lost "
+            f"activity records)" + ("; passing again" if n + 1 < passes
+                                    else ""))
     return len(kernels) / calls, sorted({e.name[:60] for e in kernels})
 
 
@@ -431,7 +468,7 @@ def flash_case(name, B, S, dtype, gen, causal=True, window=0, softcap=0.0,
     # at a softcap row library_ms and library_err are set at the end of
     # the run (softcap_library_times)
     return dict(kernel="flash_attention", case=name, max_abs_err=err,
-                tol=ATOL[dtype], ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                scale=float(want.float().abs().max()), tol=ATOL[dtype], ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
                 library_ms=None if softcap else sdpa_ms, library_err=None,
                 softcap_effect=effect,
                 sdpa_without_softcap_ms=sdpa_ms if softcap else None,
@@ -476,7 +513,7 @@ def decode_case(name, B, S, valid, dtype, gen, window=0, softcap=0.0,
     nbytes = (2 * q.numel() + 2 * rows * Hkv * D) * q.element_size() + \
         vl.numel() * 4
     return dict(kernel="decode_attention", case=name, max_abs_err=err,
-                tol=ATOL[dtype], ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                scale=float(want.float().abs().max()), tol=ATOL[dtype], ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
                 library_ms=None if softcap else sdpa_ms, library_err=None,
                 softcap_effect=effect,
                 sdpa_without_softcap_ms=sdpa_ms if softcap else None,
@@ -545,7 +582,8 @@ def check_attention_rows(rows: list) -> None:
                    f", dropping the softcap moves the plain output by "
                    f"{r['softcap_effect']:.3e}")
         log(f"check {r['kernel']:16s} {r['case']:34s} "
-            f"max_abs_err={r['max_abs_err']:.3e} tol={r['tol']:.0e} "
+            f"max_abs_err={r['max_abs_err']:.3e} max|want|={r['scale']:.3g} "
+            f"tol={r['tol']:.0e} "
             f"kernel_ms={r['ms']:.4f} eager_call_ms={r['eager_ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} "
             f"{lib} bound_ms={r['bound_ms']:.5f} ({r['bound_by']}; "
@@ -568,11 +606,14 @@ def check_attention_rows(rows: list) -> None:
 # phase 4: serve + logits check
 # ---------------------------------------------------------------------------
 
-def serve_run(arch: str, label: str, extra: list) -> dict:
+def serve_run(arch: str, label: str, extra: list, cfg=None) -> dict:
+    """``serve.main`` on ``arch`` with SERVE_ARGS + ``extra`` (4 requests x
+    8 new tokens, 4 slots, EDF), or on ``cfg`` (a cut depth) in its place;
+    launch counters zeroed just before and read just after."""
     zero_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    report = serve.main(["--arch", arch] + SERVE_ARGS + extra)
+    report = serve.main(["--arch", arch] + SERVE_ARGS + extra, cfg=cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
@@ -619,42 +660,62 @@ def controls_check(arch: str, out: dict, witness: str | None) -> dict:
     return ctrl
 
 
-def logits_check(arch: str = "llama3-8b", need_argmax: bool = False,
-                 controls: dict | None = None,
-                 witness: str | None = None, tol: float = LOGITS_ATOL,
-                 params=None) -> dict:
-    """One 17-token prefill and one decode step of ``arch`` at full width
-    through the kernel path and the plain path on the same weights (seed
-    0's, or ``params``); both paths decode the kernel path's next token;
-    an encdec arch's prompt carries its stub frames. Logits within ``tol``;
-    with ``need_argmax`` both steps' argmax equal too (the plain path's
-    top-two margins are printed beside it). Each of ``controls`` ({name:
-    config fields}) runs the plain path with those fields replaced; see
-    ``controls_check``."""
-    cfg = get_config(arch)
-    model = build(cfg, device="cuda")
-    plain = build(cfg, device="cuda", plain_kernels=True)
-    params = model.init(0) if params is None else params
+def logits_batch(cfg) -> tuple[dict, int]:
+    """A 17-token prompt from seed 0 (an encdec arch's with its stub
+    frames, a vlm arch's with its stub patch embeddings) and the position
+    its first decode step writes (17, or 17 + vision_tokens)."""
     rng = np.random.default_rng(0)
     batch = {"tokens": torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (1, 17)).astype(np.int32)).cuda()}
     if cfg.family == "encdec":
         batch["frames"] = torch.from_numpy(rng.normal(size=(
             1, cfg.encoder_frames, cfg.d_model)).astype(np.float32)).cuda()
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = torch.from_numpy(rng.normal(size=(
+            1, cfg.vision_tokens, cfg.d_model)).astype(np.float32)).cuda()
+    return batch, 17 + (cfg.vision_tokens if cfg.family == "vlm" else 0)
+
+
+def two_steps(m, params, batch, pos: int, nxt=None, max_seq: int = 128):
+    """(prefill logits, decode logits, the next token fed): one prefill of
+    ``batch`` and one decode step at ``pos`` of ``nxt`` (the prefill's
+    argmax when None)."""
+    logits0, caches = m.prefill(params, batch, max_seq)
+    if nxt is None:
+        nxt = torch.argmax(logits0[:, -1], dim=-1).to(torch.int32)[:, None]
+    logits1, _ = m.decode_step(params, caches, nxt, torch.tensor(
+        [pos], dtype=torch.int32, device="cuda"))
+    del caches
+    return logits0.float(), logits1.float(), nxt
+
+
+def logits_check(arch: str = "llama3-8b", need_argmax: bool = False,
+                 controls: dict | None = None,
+                 witness: str | None = None, tol: float = LOGITS_ATOL,
+                 params=None, cfg=None, max_seq: int = 128) -> dict:
+    """One 17-token prefill and one decode step of ``arch`` at full width
+    (or of ``cfg``, a cut depth) through the kernel path and the plain path
+    on the same weights (seed 0's, or ``params``); both paths decode the
+    kernel path's next token; the prompt carries an encdec arch's stub
+    frames or a vlm arch's patch embeddings (``logits_batch``). Logits
+    within ``tol``; with ``need_argmax`` both steps' argmax equal too (the
+    plain path's top-two margins are printed beside it). Each of
+    ``controls`` ({name: config fields}) runs the plain path with those
+    fields replaced; see ``controls_check``."""
+    cfg = cfg or get_config(arch)
+    model = build(cfg, device="cuda")
+    plain = build(cfg, device="cuda", plain_kernels=True)
+    params = model.init(0) if params is None else params
+    batch, pos = logits_batch(cfg)
     runs = [("kernel", model), ("plain", plain)] + [
         (name, build(dataclasses.replace(cfg, **kw), device="cuda",
                      plain_kernels=True))
         for name, kw in (controls or {}).items()]
     out, nxt = {}, None
     for name, m in runs:
-        logits0, caches = m.prefill(params, batch, 128)
-        if nxt is None:
-            nxt = torch.argmax(logits0[:, -1], dim=-1).to(torch.int32)[:, None]
-        logits1, _ = m.decode_step(params, caches, nxt,
-                                   torch.tensor([17], dtype=torch.int32,
-                                                device="cuda"))
-        out[name] = (logits0.float(), logits1.float())
-        del caches
+        logits0, logits1, nxt = two_steps(m, params, batch, pos, nxt,
+                                          max_seq)
+        out[name] = (logits0, logits1)
     torch.cuda.synchronize()
     errs = [float((a - b).abs().max())
             for a, b in zip(out["kernel"], out["plain"])]
@@ -1334,6 +1395,287 @@ def encdec_phase(chunked_args: list) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: K4/K5 at the moe and vlm families' shapes and at head dim 32
+# ---------------------------------------------------------------------------
+
+LLAMA4_ATTN = dict(Hq=40, Hkv=8, D=128)                   # GQA 5
+GROK_ATTN = dict(Hq=48, Hkv=8, D=128, softcap=30.0)       # GQA 6, softcap 30
+INTERNVL_ATTN = dict(Hq=64, Hkv=8, D=128)                 # GQA 8
+REDUCED_ATTN = dict(Hq=4, Hkv=2, D=32)                    # every --reduced
+INTERNVL_PROMPT = 256 + 17        # the image prefix and a 17-token prompt
+INTERNVL_VALID = [262, 270, 279, 290]   # 4 slots: prefix + 4..23 + decoded
+RAGGED_128 = [128, 1, 77, 64]
+
+
+def moe_vlm_kernel_checks() -> dict:
+    """K5 and K4 at llama4's 40/8 heads x 128 (a 17-token prompt, the
+    4-slot decode over 128 positions), at grok-1's 48/8 x 128 with its
+    attention softcap of 30 (q scaled so the cap bites), at internvl2-76b's
+    64/8 x 128 (the 256-row image prefix plus a 17-token prompt, causal;
+    4 slots over a 512-position cache with 262-290 live rows), and at every
+    reduced config's 4/2 heads x 32 in f32 and bf16 (the --smoke path);
+    K6 at the reduced SSM shape (16 heads, P=16, N=16, a 17-token chunk).
+    Each against its plain version at bf16 2e-2, f32 1e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20)
+    bf16, f32 = torch.bfloat16, torch.float32
+    attn = [
+        flash_case("llama4_B1_S17_causal_G5_bf16", 1, 17, bf16, gen,
+                   **LLAMA4_ATTN),
+        decode_case("llama4_B4_S128_ragged_G5_bf16", 4, 128, RAGGED_128,
+                    bf16, gen, **LLAMA4_ATTN),
+        flash_case("grok1_B1_S17_causal_softcap30_G6_bf16", 1, 17, bf16,
+                   gen, **GROK_ATTN),
+        decode_case("grok1_B4_S128_ragged_softcap30_G6_bf16", 4, 128,
+                    RAGGED_128, bf16, gen, **GROK_ATTN),
+        flash_case(f"internvl2_B1_S{INTERNVL_PROMPT}_causal_G8_bf16", 1,
+                   INTERNVL_PROMPT, bf16, gen, **INTERNVL_ATTN),
+        decode_case("internvl2_B4_S512_valid262-290_G8_bf16", 4, 512,
+                    INTERNVL_VALID, bf16, gen, **INTERNVL_ATTN),
+    ]
+    for dtype, tag in ((f32, "f32"), (bf16, "bf16")):
+        attn += [
+            flash_case(f"reduced_B1_S17_causal_D32_{tag}", 1, 17, dtype, gen,
+                       **REDUCED_ATTN),
+            decode_case(f"reduced_B4_S128_ragged_D32_{tag}", 4, 128,
+                        RAGGED_128, dtype, gen, **REDUCED_ATTN)]
+    check_attention_rows(attn)
+    rng = np.random.default_rng(20)
+    ssd = [ssd_case("reduced_B1_C1_L17_H16_P16_N16", 1, 1, 17, 16, 16, 16,
+                    rng)]
+    check_ssd_rows(ssd)
+    return {r["case"]: r for r in attn + ssd}
+
+
+# ---------------------------------------------------------------------------
+# phase 4f: llama4-maverick, grok-1 (moe) and internvl2-76b (vlm) at full
+# width, depth cut
+# ---------------------------------------------------------------------------
+
+# (arch, layers, max_seq): every width as published, the depth cut to what
+# one 80 GB card holds in bf16 with room for two engines' caches and the
+# plain path: llama4 one (dense, MoE) period (one MoE layer alone is 16.2 G
+# parameters), grok-1 4 of 64 layers, internvl2-76b 24 of 80 (its prompts
+# carry the 256-row image prefix, hence the 512-position cache)
+CUT_DEPTH = (("llama4-maverick-400b-a17b", 2, 128), ("grok-1-314b", 4, 128),
+             ("internvl2-76b", 24, 512))
+
+
+@contextlib.contextmanager
+def routes(replay=None):
+    """``moe.route`` wrapped for the block: every call's f32 router logits
+    and top-k choices recorded in call order ([(logits, idx)], yielded).
+    With ``replay`` (such a record) call i takes the recorded choices
+    instead of its own top-k, its gates recomputed from its own
+    probabilities; ``moe.slots`` then places them."""
+    own = moe_mod.route
+    calls = []
+
+    def wrapped(logits, top_k, capacity):
+        if replay is None:
+            out = own(logits, top_k, capacity)
+        else:
+            idx = replay[len(calls)][1]
+            probs = torch.softmax(logits, dim=-1)
+            gates = probs.gather(-1, idx)
+            gates = gates / gates.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+            out = (probs, idx, gates,
+                   *moe_mod.slots(idx, gates, logits.shape[-1], capacity))
+        calls.append((logits.detach().clone(), out[1].clone()))
+        return out
+
+    moe_mod.route = wrapped
+    try:
+        yield calls
+    finally:
+        moe_mod.route = own
+
+
+def moe_logits_check(cfg, params) -> dict:
+    """A MoE model's 17-token prefill and one decode step through the kernel
+    path and the plain path, each MoE layer's routing recorded. A top-k
+    choice that differs between the paths (a flip) is a routing tie only
+    where the plain path's router-logit gap at the top-k boundary is at
+    most twice the largest router-logit difference between the paths; any
+    other flip fails. Then the plain path again with the kernel path's
+    choices replayed: its logits within LOGITS_ATOL of the kernel path's,
+    argmax equal. (Host and chunked prefill may drop different tokens at
+    capacity, so served tokens are not compared across them.)"""
+    model = build(cfg, device="cuda")
+    plain = build(cfg, device="cuda", plain_kernels=True)
+    batch, pos = logits_batch(cfg)
+    with routes() as k_calls:
+        k0, k1, nxt = two_steps(model, params, batch, pos)
+    with routes() as p_calls:
+        p0, p1, _ = two_steps(plain, params, batch, pos, nxt)
+    with routes(replay=k_calls) as r_calls:
+        r0, r1, _ = two_steps(plain, params, batch, pos, nxt)
+    torch.cuda.synchronize()
+    if not len(k_calls) == len(p_calls) == len(r_calls) > 0:
+        raise SystemExit(f"{cfg.name}: route calls kernel {len(k_calls)} "
+                         f"plain {len(p_calls)} replay {len(r_calls)}")
+    K = cfg.moe.top_k
+    diff = max(float((a[0] - b[0]).abs().max())
+               for a, b in zip(k_calls, p_calls))
+    gaps = []                     # the plain gap at each flipped choice
+    for (_, ik), (lp, ip) in zip(k_calls, p_calls):
+        same = (ik.sort(dim=-1).values == ip.sort(dim=-1).values).all(-1)
+        top = lp.topk(K + 1, dim=-1).values
+        gaps += (top[..., K - 1] - top[..., K])[~same].tolist()
+    untied = [g for g in gaps if g > 2 * diff]
+    choices = sum(int(c[1].numel()) // K for c in k_calls)
+    errs = [float((a - b).abs().max()) for a, b in ((k0, r0), (k1, r1))]
+    plain_errs = [float((a - b).abs().max()) for a, b in ((k0, p0), (k1, p1))]
+    same = [bool((a.argmax(-1) == b.argmax(-1)).all())
+            for a, b in ((k0, r0), (k1, r1))]
+    margins = [top2_margin(b)[0] for b in (r0, r1)]
+    log(f"logits[{cfg.name} {cfg.num_layers} layers] routing: {len(k_calls)} "
+        f"route calls, {choices} (token, layer) choices, {len(gaps)} flipped "
+        f"between the kernel and plain paths; largest router-logit "
+        f"difference {diff:.3e}; plain gaps at the flips "
+        f"{[round(g, 5) for g in gaps]} (a tie when <= {2 * diff:.3e}); "
+        f"untied flips {len(untied)}")
+    log(f"logits[{cfg.name} {cfg.num_layers} layers] kernel path vs the plain "
+        f"path replaying its routing: prefill max_abs_err={errs[0]:.3e} "
+        f"decode max_abs_err={errs[1]:.3e} (|logits| max "
+        f"{float(r0.abs().max()):.2f}, tol {LOGITS_ATOL}) argmax_equal={same} "
+        f"replayed top-two margins={[round(m, 4) for m in margins]}; without "
+        f"the replay {plain_errs[0]:.3e} / {plain_errs[1]:.3e}")
+    if untied:
+        raise SystemExit(f"{cfg.name}: routing flips that are no tie: gaps "
+                         f"{untied} > 2 x {diff:.3e}")
+    if max(errs) > LOGITS_ATOL or not all(math.isfinite(e) for e in errs) \
+            or not all(same):
+        raise SystemExit(f"{cfg.name}: kernel-path logits disagree with the "
+                         f"plain path replaying its routing")
+    return dict(errs=errs, plain_errs=plain_errs, same=same, flips=len(gaps),
+                choices=choices, router_diff=diff, gaps=gaps,
+                margins=margins)
+
+
+def moe_vlm_phase(chunked_args: list) -> dict:
+    """Each of CUT_DEPTH at full width, its depth cut: served as
+    ``serve.main`` serves (4 requests x 8 new tokens, 4 slots, EDF) with
+    host prefill (K5 layers x 4 prompts) and with chunked prefill (K5 0
+    for moe; internvl2-76b's requests carry patch embeddings and take the
+    host prefill there too), peak memory printed; then the logits against
+    the plain path on seed 0's weights (``moe_logits_check``, or
+    ``logits_check`` with the 256 patch embeddings in the prompt)."""
+    out = {}
+    for arch, layers, max_seq in CUT_DEPTH:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        kind = (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k}"
+                if cfg.moe else f", {cfg.vision_tokens} vision tokens")
+        log(f"{arch}: {layers} of {get_config(arch).num_layers} layers, "
+            f"full width (d={cfg.d_model}, {cfg.num_heads}/"
+            f"{cfg.num_kv_heads} heads x {cfg.resolved_head_dim}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab_size}{kind}), bf16 weights "
+            f"{cfg.param_count() * 2 / 2**30:.1f} GiB (param_count)")
+        key = arch.replace("-", "_")
+        extra = ["--max-seq", str(max_seq)]
+        host = serve_run(arch, "host_prefill", extra, cfg=cfg)
+        chunked = serve_run(arch, "chunked_prefill", chunked_args + extra,
+                            cfg=cfg)
+        want = layers * 4 if cfg.family == "vlm" else 0
+        if host["flash_attention"] != layers * 4 or \
+                chunked["flash_attention"] != want or \
+                not host["decode_attention"] or \
+                not chunked["decode_attention"]:
+            raise SystemExit(f"{arch} serve: launches host {host} (want K5 "
+                             f"{layers} x 4) chunked {chunked} (want K5 "
+                             f"{want})")
+        out[f"{key}_host_prefill"] = host
+        out[f"{key}_chunked_prefill"] = chunked
+        params = build(cfg, device="cuda").init(0)
+        gib = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(params)) / 2**30
+        log(f"{arch} {layers} layers: weights {gib:.2f} GiB on the card")
+        if cfg.family == "moe":
+            out[f"{key}_logits"] = moe_logits_check(cfg, params)
+        else:
+            out[f"{key}_logits"] = logits_check(arch, cfg=cfg, params=params,
+                                                max_seq=max_seq)
+        out[f"{key}_weights_gib"] = gib
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4g: serve --smoke on the card, every registered arch
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_calls():
+    """Counts of the plain attention and SSD versions the models call for
+    the block ({name: calls}, yielded): a CUDA path must make none."""
+    counts = {}
+    sites = [(attn_mod, "flash_attention_plain"),
+             (attn_mod, "decode_attention_plain"),
+             (ssd_ops, "ssd_chunk_plain")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in sites]
+
+    def counting(name, own):
+        def fn(*args, **kw):
+            counts[name] = counts.get(name, 0) + 1
+            return own(*args, **kw)
+        return fn
+
+    for mod, name, own in saved:
+        setattr(mod, name, counting(name, own))
+    try:
+        yield counts
+    finally:
+        for mod, name, own in saved:
+            setattr(mod, name, own)
+
+
+def smoke_phase() -> dict:
+    """``serve.main(["--smoke", "--arch", X])`` with its default device
+    (cuda) for every registered arch: the reduced config (f32, head dim 32,
+    4/2 heads), 6 requests x 4 new tokens. Every request completes,
+    ``met == n``, K5 and K4 launched for an arch with attention, K6 for
+    the ssm and hybrid ones, and no plain attention or SSD on the path."""
+    runs = {}
+    for arch in list_configs():
+        fam = get_config(arch).family
+        with plain_calls() as plain:
+            zero_launches()
+            t0 = time.perf_counter()
+            report = serve.main(["--smoke", "--arch", arch])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+        ds, outs = report.deadline_stats, report.outputs
+        log(f"smoke[{arch}] wall={wall:.1f}s launches={launches} n={ds['n']} "
+            f"met={ds['met']} tokens={[len(o) for o in outs]} plain calls "
+            f"{plain}")
+        bad = []
+        if len(outs) != 6 or any(len(o) != 4 for o in outs):
+            bad.append("a request did not complete")
+        if ds["met"] != ds["n"]:
+            bad.append(f"met={ds['met']} != n={ds['n']}")
+        if fam != "ssm" and not (launches["flash_attention"] and
+                                 launches["decode_attention"]):
+            bad.append("K5/K4 not launched")
+        if fam in ("ssm", "hybrid") and not launches["ssd_chunk"]:
+            bad.append("K6 not launched")
+        if plain:
+            bad.append(f"plain versions ran: {plain}")
+        if bad:
+            raise SystemExit(f"smoke[{arch}]: {bad}")
+        runs[arch] = launches
+        del report
+        reap_deferred()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs
+
+
+# ---------------------------------------------------------------------------
 # phase 5: tile kernels vs plain at 132 clusters
 # ---------------------------------------------------------------------------
 
@@ -1912,6 +2254,7 @@ def main(argv=None) -> int:
     checks = kernel_checks()
     ssd = ssd_checks()
     hyb_rows = hybrid_encdec_kernel_checks()
+    mv_rows = moe_vlm_kernel_checks()
     chunked_args = ["--chunked-prefill", "--prefill-chunk", "8"]
     host = serve_run("llama3-8b", "host_prefill", [])
     chunked = serve_run("llama3-8b", "chunked_prefill", chunked_args)
@@ -1937,8 +2280,12 @@ def main(argv=None) -> int:
     ssm_long = ssm_long_prompt_check(ssd["s2048"]["ms"])
     hybrid = hybrid_phase(chunked_args, hyb_rows)
     encdec = encdec_phase(chunked_args)
-    new_runs = {k: v for phase in (hybrid, encdec) for k, v in phase.items()
-                if k.endswith("_prefill")}
+    moe_vlm = moe_vlm_phase(chunked_args)
+    smoke = smoke_phase()
+    new_runs = {k: v for phase in (hybrid, encdec, moe_vlm)
+                for k, v in phase.items() if k.endswith("_prefill")}
+    new_runs.update({f"smoke_{arch.replace('-', '_')}": launched
+                     for arch, launched in smoke.items()})
 
     tiles = tile_kernel_checks()
     paths = {}
@@ -1950,7 +2297,8 @@ def main(argv=None) -> int:
     missing = [n for n in TILE_KERNELS if paths[n][n] == 0]
     if missing:
         raise SystemExit(f"tile path never launched: {missing}")
-    softcap_library_times(checks["cases"])
+    softcap_library_times(checks["cases"] + [
+        r for r in mv_rows.values() if r["kernel"] in ATTENTION])
 
     kernels = []
     for name, spec in KERNELS.items():
@@ -2035,10 +2383,11 @@ def main(argv=None) -> int:
             row = dict(row, max_abs_err=max(row["max_abs_err"],
                                             tiles[name]["max_abs_err"]))
         if name in ATTENTION + ("ssd_chunk",):
-            # zamba2-7b's and whisper-tiny's serve runs and shapes
+            # the serve runs and shapes of zamba2-7b, whisper-tiny, the
+            # moe and vlm configs at cut depth, and --smoke
             for run, launched in new_runs.items():
                 extra["launches_" + run] = launched[name]
-            for r in hyb_rows.values():
+            for r in (*hyb_rows.values(), *mv_rows.values()):
                 if r["kernel"] == name:
                     extra["at_" + r["case"]] = {
                         k: r[k] for k in ("ms", "plain_ms", "bound_ms",

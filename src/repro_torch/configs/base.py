@@ -1,7 +1,8 @@
 """Model / run configuration system — the PyTorch port's copy of
-``repro.configs.base``. The registry loads only the configs whose model
-family has been ported: the dense configs (llama3-8b, gemma2-2b,
-mistral-nemo-12b, qwen2-72b) and mamba2-780m.
+``repro.configs.base``. The registry loads all ten configs the reference
+registers: dense (llama3-8b, gemma2-2b, mistral-nemo-12b, qwen2-72b), ssm
+(mamba2-780m), hybrid (zamba2-7b), encdec (whisper-tiny), moe
+(llama4-maverick-400b-a17b, grok-1-314b) and vlm (internvl2-76b).
 
 Every assigned architecture is a ``ModelConfig`` registered under its public id.
 ``ModelConfig.reduced()`` derives a small same-family config for CPU smoke tests;
@@ -282,9 +283,9 @@ def _ensure_loaded() -> None:
     global _LOADED
     if _LOADED:
         return
-    # only the configs whose model family has been ported register here
     from repro_torch.configs import (  # noqa: F401
-        gemma2_2b, llama3_8b, mamba2_780m, mistral_nemo_12b, qwen2_72b,
+        gemma2_2b, grok1_314b, internvl2_76b, llama3_8b,
+        llama4_maverick_400b_a17b, mamba2_780m, mistral_nemo_12b, qwen2_72b,
         whisper_tiny, zamba2_7b,
     )
     _LOADED = True

@@ -46,7 +46,7 @@
 //     the next STAGES - 1 tiles' loads are in flight (~64-100 KB a CTA).
 //     Keys past the range's end within its last tile are zero-filled, never
 //     read.
-// (5) The math. bf16 at D = 64, 112 and 128 (the serve path's) runs on the
+// (5) The math. bf16 at D = 32, 64, 112 and 128 (the serve path's) runs on the
 //     tensor cores (mma.sync m16n8k16, f32 accumulate): the G query heads
 //     are the 16 rows of the A operand (rows past G zero), each of the
 //     MMA_WARPS warps takes 16 keys of every 64-key tile with its own
@@ -59,8 +59,11 @@
 //     pace: scripts/exec_decode_turns.py's no_math variant). f32, and bf16
 //     at D = 256, keep the FFMA kernel: one warp a query head, two or one
 //     keys a lane for Q·Kᵀ, ceil(D/32) dims a lane for P·V (at D = 112, 28
-//     lanes of 4). D = 112 (zamba2-7b): Q·Kᵀ in 7 k16 steps, P·V in 14 n8
-//     tiles; its 224-byte cache rows keep the 16-byte copies aligned.
+//     lanes of 4; at D = 32, 8 lanes of 4). D = 112 (zamba2-7b): Q·Kᵀ in 7
+//     k16 steps, P·V in 14 n8 tiles; its 224-byte cache rows keep the
+//     16-byte copies aligned. D = 32 (every reduced config): 2 k16 steps
+//     and 4 n8 tiles, rows padded to 80 bytes (the 8 rows of an ldmatrix
+//     read start 20 words apart: distinct banks).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (see repro_torch/kernels/_build.py).
@@ -77,11 +80,12 @@ namespace {
 constexpr int MAX_G = 16;         // query heads per kv head (one m16 tile; one warp each in FFMA)
 constexpr int MIN_WARPS = 4;      // warps a CTA, at least (extra ones only load)
 constexpr int MAX_CLUSTER = 8;    // CTAs (splits) a cluster: the portable limit
-// bf16 at D = 64, 112 and 128: tensor-core products, 16 keys a warp a tile; rows
+// bf16 at D = 32, 64, 112 and 128: tensor-core products, 16 keys a warp a tile; rows
 // of K and V padded by 16 bytes (the 8 rows of an ldmatrix read hit
 // distinct banks); as many stages as keep the ring near 100 KB.
 constexpr int MMA_WARPS = 4;
 constexpr int MMA_BK = 16 * MMA_WARPS;
+constexpr int STAGES_MMA_D32 = 4;
 constexpr int STAGES_MMA_D64 = 4;
 constexpr int STAGES_MMA_D112 = 3;
 constexpr int STAGES_MMA_D128 = 3;
@@ -90,6 +94,8 @@ constexpr int STAGES_MMA_D128 = 3;
 // stages as keep the ring near 100 KB (two CTAs an SM), at least two.
 constexpr int BK_BF16_D256 = 32;
 constexpr int STAGES_BF16_D256 = 3;
+constexpr int BK_F32_D32 = 64;
+constexpr int STAGES_F32_D32 = 3;
 constexpr int BK_F32_D64 = 64;
 constexpr int STAGES_F32_D64 = 3;
 constexpr int BK_F32_D112 = 32;
@@ -101,6 +107,7 @@ constexpr int STAGES_F32_D256 = 2;
 
 template <int D, typename T> struct Cfg;
 template <> struct Cfg<256, __nv_bfloat16> { static constexpr int BK = BK_BF16_D256, STAGES = STAGES_BF16_D256; };
+template <> struct Cfg<32, float> { static constexpr int BK = BK_F32_D32, STAGES = STAGES_F32_D32; };
 template <> struct Cfg<64, float> { static constexpr int BK = BK_F32_D64, STAGES = STAGES_F32_D64; };
 template <> struct Cfg<112, float> { static constexpr int BK = BK_F32_D112, STAGES = STAGES_F32_D112; };
 template <> struct Cfg<128, float> { static constexpr int BK = BK_F32_D128, STAGES = STAGES_F32_D128; };
@@ -127,6 +134,7 @@ struct Layout {
 // partials sM[W][G], sL[W][G], sAcc[W][G][D] f32 and the CTA's merged
 // one (cM[G], cL[G], cAcc[G][D]).
 template <int D> struct MmaCfg;
+template <> struct MmaCfg<32> { static constexpr int STAGES = STAGES_MMA_D32; };
 template <> struct MmaCfg<64> { static constexpr int STAGES = STAGES_MMA_D64; };
 template <> struct MmaCfg<112> { static constexpr int STAGES = STAGES_MMA_D112; };
 template <> struct MmaCfg<128> { static constexpr int STAGES = STAGES_MMA_D128; };
@@ -286,7 +294,7 @@ decode_ffma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int VN = L::VN;
   constexpr int KSTRIDE = L::KSTRIDE;
   constexpr int VPR = D / VN;                 // 16-byte vectors a row of Q·Kᵀ
-  constexpr int DL = (D + 31) / 32;           // dims a lane in P·V
+  constexpr int DL = D <= 32 ? 4 : (D + 31) / 32;   // dims a lane in P·V
   constexpr int KPL = BK / 32;                // keys a lane in Q·Kᵀ
   constexpr int STAGE_ELEMS = BK * (KSTRIDE + D);
 
@@ -300,7 +308,7 @@ decode_ffma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nthreads = blockDim.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const bool pv_lane = lane * DL < D;         // false past D (D = 112)
+  const bool pv_lane = lane * DL < D;         // false past D (D = 32, 112)
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
@@ -451,7 +459,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return x | (y << 16);
 }
 
-// bf16, D in {64, 112, 128}. grid (n_split, Hkv, B), clusters of (n_split, 1,
+// bf16, D in {32, 64, 112, 128}. grid (n_split, Hkv, B), clusters of (n_split, 1,
 // 1); MMA_WARPS warps. Lane (g, t) = (lane / 4, lane % 4) holds, in every
 // m16n8 accumulator, rows (query heads) g and g + 8 and columns 2t, 2t + 1
 // (keys of S, dims of O). Warp w takes keys 16 w ... 16 w + 15 of each tile:
@@ -731,10 +739,12 @@ extern "C" int k4_decode_attention(const void* q, const void* k,
   const int* vl = static_cast<const int*>(valid_len);
   using bf16 = __nv_bfloat16;
   switch (is_bf16 ? D : -D) {
+    case 32: return launch_mma<32>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, st);
     case 64: return launch_mma<64>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, st);
     case 112: return launch_mma<112>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, st);
     case 128: return launch_mma<128>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, st);
     case 256: return launch_ffma<256, bf16>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, st);
+    case -32: return launch_ffma<32, float>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, st);
     case -64: return launch_ffma<64, float>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, st);
     case -112: return launch_ffma<112, float>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, st);
     case -128: return launch_ffma<128, float>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, st);

@@ -6,7 +6,7 @@ Port of ``repro.kernels.decode_attention`` (``_decode_kernel`` /
 in ``csrc/decode_attention.cu`` for CUDA tensors — one launch a call: a
 cluster of ``split_count`` CTAs a (sequence, kv head), each over the key
 range of the live keys it derives from ``valid_len`` on the device (bf16
-at D = 64, 112 and 128 on the tensor cores, f32 and D = 256 in FFMA), merged
+at D = 32, 64, 112 and 128 on the tensor cores, f32 and D = 256 in FFMA), merged
 through distributed shared memory — and uses ``decode_attention_plain`` for
 CPU tensors, the only case in which it does. On a CUDA tensor it launches
 the kernel or raises.
@@ -23,7 +23,7 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
-HEAD_DIMS = (64, 112, 128, 256)
+HEAD_DIMS = (32, 64, 112, 128, 256)
 MAX_GROUP = 16        # query heads per kv head the kernel serves (one m16 tile)
 MAX_CLUSTER = 8       # CTAs a cluster (splits a (sequence, kv head)): portable
 SPLIT_MIN_KEYS = 64   # cache positions a split, at least

@@ -12,11 +12,12 @@
 // key tiles, their addresses and the kv_len mask then follow Skv (the
 // Pallas kernel takes its key blocks from q's length, so it reads only the
 // first S keys there: the port holds the reference's flash_xla function).
-// Head dims 64, 112, 128 and 256; D = 112 (zamba2-7b) runs the bf16 kernel
-// at a compute width of 128: its tensor maps are 112 wide, so the TMA
-// zero-fills columns 112-127 of each row's second 64-column box, which
+// Head dims 32, 64, 112, 128 and 256; D = 112 (zamba2-7b) runs the bf16
+// kernel at a compute width of 128: its tensor maps are 112 wide, so the
+// TMA zero-fills columns 112-127 of each row's second 64-column box, which
 // leaves Q·Kᵀ unchanged and P·V's extra columns 0, and only 112 columns
-// are stored (the scale stays 1/sqrt(112), from the wrapper).
+// are stored (the scale stays 1/sqrt(112), from the wrapper). D = 32 (every
+// reduced config) computes at 64 the same way, over 32-wide tensor maps.
 //
 // What bounds it on the H100: at prefill lengths (S >= ~300 per head) the
 // useful operations, 4*S^2*D*Hq/2 for causal, outweigh the bytes (q, k, v, o
@@ -94,18 +95,23 @@ __device__ __forceinline__ void store16(T* p, const float* in) {
 
 // ---- FFMA path (f32) --------------------------------------------------------
 // grid (ceil(S/BQ), Hq, B); THREADS threads; TPR = ceil(D/32) threads per
-// query row (a power of two), BQ = THREADS/TPR rows per CTA, DPT = D/TPR
-// dims a thread (32; 28 at D = 112). Thread `part` of a row owns the dims
+// query row (a power of two; 4 at D = 32, so a CTA takes 64 rows, not
+// 256), BQ = THREADS/TPR rows per CTA, DPT = D/TPR dims a thread (32; 28
+// at D = 112, 8 at D = 32). Thread `part` of a row owns the dims
 // (c*TPR + part)*VN + [0, VN) for c in [0, DPT/VN): neighbouring threads
 // read neighbouring 16-byte chunks of a shared K/V row (no bank conflicts),
 // and a row's dot product is finished with log2(TPR) xor-shuffles.
+__host__ __device__ constexpr int threads_per_row(int D) {
+  return D <= 32 ? 4 : (D + 31) / 32;
+}
+
 template <int D, typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  int S, int Skv, int Hq, int Hkv, int causal, int window,
                  float softcap, int kv_len, float scale) {
-  constexpr int TPR = (D + 31) / 32;
+  constexpr int TPR = threads_per_row(D);
   constexpr int BQ = THREADS / TPR;
   constexpr int VN = Vec<T>::N;
   constexpr int DPT = D / TPR;         // dims a thread
@@ -234,7 +240,7 @@ template <int D, typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
            int Skv, int Hq, int Hkv, int causal, int window, float softcap,
            int kv_len, float scale, cudaStream_t stream) {
-  constexpr int BQ = THREADS / ((D + 31) / 32);
+  constexpr int BQ = THREADS / threads_per_row(D);
   const int smem = 2 * BK * D * (int)sizeof(T);
   auto kern = flash_fwd_kernel<D, T>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -253,6 +259,7 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* o,
              int B, int S, int Skv, int Hq, int Hkv, int causal, int window,
              float softcap, int kv_len, float scale, cudaStream_t stream) {
   switch (D) {
+    case 32: return launch<32, T>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
     case 64: return launch<64, T>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
     case 112: return launch<112, T>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
     case 128: return launch<128, T>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
@@ -275,7 +282,7 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* o,
 // Every tile is stored as 64-column slabs of 128-byte rows in the TMA's
 // 128-byte swizzle, which is the layout wgmma's B128 descriptors read:
 // Q and K K-major (head dim contiguous), V MN-major for B (transposed).
-// A head dim that is not a multiple of 64 (112) fills its last slab
+// A head dim that is not a multiple of 64 (32, 112) fills its last slab
 // partly: the TMA writes zeros past D, Q·Kᵀ skips the all-zero k16 steps,
 // and P·V's columns past D are computed as 0 and never stored.
 // A persistent grid of at most one CTA an SM walks the (query block,
@@ -304,6 +311,10 @@ constexpr int SMEM_D128 = SMEM_ALIGN + BQ * 128 * 2 + STAGES_D128 * 2 * BK_D128 
 constexpr int BK_D112 = BK_D128;
 constexpr int STAGES_D112 = STAGES_D128;
 constexpr int SMEM_D112 = SMEM_D128;
+// D = 32 computes at the D = 64 instance's width (one 64-column slab)
+constexpr int BK_D32 = BK_D64;
+constexpr int STAGES_D32 = STAGES_D64;
+constexpr int SMEM_D32 = SMEM_D64;
 constexpr int BK_D256 = 64;
 constexpr int STAGES_D256 = 2;
 constexpr int SMEM_D256 = SMEM_ALIGN + BQ * 256 * 2 + STAGES_D256 * 2 * BK_D256 * 256 * 2 + BAR_BYTES;
@@ -312,6 +323,9 @@ constexpr int SMEM_D256 = SMEM_ALIGN + BQ * 256 * 2 + STAGES_D256 * 2 * BK_D256 
 constexpr int BK_SHORT = 64;
 
 template <int D> struct TcCfg;
+template <> struct TcCfg<32> {
+  static constexpr int STAGES = STAGES_D32, SMEM = SMEM_D32;
+};
 template <> struct TcCfg<64> {
   static constexpr int STAGES = STAGES_D64, SMEM = SMEM_D64;
 };
@@ -968,6 +982,8 @@ int launch_bf16(int D, const void* q, const void* k, const void* v, void* o,
   // on the query length: a short prompt against 1500 encoder frames too)
   const bool short_s = S <= WG_ROWS;
   switch (D) {
+    case 32: return short_s ? launch_tc<32, BK_SHORT>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream)
+                            : launch_tc<32, BK_D32>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
     case 64: return short_s ? launch_tc<64, BK_SHORT>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream)
                             : launch_tc<64, BK_D64>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
     case 112: return short_s ? launch_tc<112, BK_SHORT>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream)

@@ -25,7 +25,7 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (64, 112, 128, 256)
+HEAD_DIMS = (32, 64, 112, 128, 256)
 NEG_INF = -1e30
 
 _lib: Optional[ctypes.CDLL] = None

@@ -18,9 +18,11 @@ reference's (``repro.launch.serve``) plus ``--device`` (default ``cuda``;
 no silent CPU fallback). An encdec arch (whisper-tiny) gives each request
 its 1500 stub frames (``encoder_frames`` x ``d_model``), drawn from the
 same numpy generator as the prompts and in the reference's order, and
-takes the host prefill for them; the vlm prefix extras wait for that
-family. ``main`` returns a :class:`ServeReport`, so callers read the
-results without parsing stdout.
+takes the host prefill for them; a vlm arch (internvl2-76b) likewise gives
+each request its stub patch embeddings (``vision_tokens`` x ``d_model``).
+``main`` returns a :class:`ServeReport`, so callers read the results
+without parsing stdout; ``main(argv, cfg=...)`` serves a config a caller
+made (a cut depth) in place of ``--arch``'s.
 """
 from __future__ import annotations
 
@@ -73,7 +75,8 @@ class ServeReport:
 
 def _requests(cfg, n: int, seed: int):
     """``n`` prompts of 4-23 tokens and, for an encdec arch, each one's
-    stub frames: the reference's draws, in its order."""
+    stub frames, for a vlm arch each one's stub patch embeddings: the
+    reference's draws, in its order."""
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab_size, rng.integers(4, 24))
                for _ in range(n)]
@@ -81,6 +84,10 @@ def _requests(cfg, n: int, seed: int):
     if cfg.family == "encdec":
         extras = [{"frames": rng.normal(
             size=(cfg.encoder_frames, cfg.d_model)).astype(np.float32)}
+            for _ in range(n)]
+    if cfg.family == "vlm":
+        extras = [{"vision_embeds": rng.normal(
+            size=(cfg.vision_tokens, cfg.d_model)).astype(np.float32)}
             for _ in range(n)]
     return prompts, extras
 
@@ -114,7 +121,7 @@ def _drive(args, engine, collector, prompts, extras):
     return [fe.result(s) for s in sids], fe
 
 
-def main(argv=None) -> ServeReport:
+def main(argv=None, *, cfg=None) -> ServeReport:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3-8b")
     ap.add_argument("--reduced", action="store_true")
@@ -191,9 +198,10 @@ def main(argv=None) -> ServeReport:
         args.requests = min(args.requests, 6)
         args.max_new = min(args.max_new, 4)
 
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
     prompts, extras = _requests(cfg, args.requests, args.seed)
     if args.streams and extras is not None:
         raise SystemExit("--streams does not support encdec/vlm archs "

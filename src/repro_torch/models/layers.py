@@ -7,7 +7,10 @@ copy. ``Init`` replaces the reference's ``Builder`` with the same scales
 (normal with 1/sqrt(fan_in), 0.02 for the embedding, ones for norms,
 uniform in [-scale, scale) for the SSM conv weights) but
 draws from a ``torch.Generator`` on the target device, so full-width
-weights are made where they live.
+weights are made where they live. A normal leaf whose f32 draw would pass
+``BIG_DRAW_BYTES`` (an expert stack of llama4 or grok-1) is drawn one
+leading-axis slice at a time straight into its storage dtype, so no f32
+copy of it exists; ``stack(1, ...)`` adds the layers axis as a view.
 """
 from __future__ import annotations
 
@@ -23,6 +26,13 @@ from repro_torch.core.persistent import tree_leaves, tree_map
 # ---------------------------------------------------------------------------
 # Param init (the reference's Builder in "init" mode)
 # ---------------------------------------------------------------------------
+
+# Above this f32 draw a normal leaf is drawn slice by slice. It is above
+# every leaf of the configs served at full width before the moe family
+# (the largest, mistral-nemo-12b's embedding, is a 2.7 GB draw), so their
+# seed-0 weights are the one-draw weights they always were.
+BIG_DRAW_BYTES = 4 * 2**30
+
 
 class Init:
     def __init__(self, seed: int, dtype: torch.dtype, device):
@@ -49,19 +59,31 @@ class Init:
         if scale is None:
             fan_in = shape[0] if len(shape) == 1 else math.prod(shape[:-1])
             scale = 1.0 / math.sqrt(max(fan_in, 1))
+        if len(shape) > 1 and 4 * math.prod(shape) > BIG_DRAW_BYTES:
+            out = torch.empty(shape, dtype=dtype, device=self.device)
+            for i in range(shape[0]):
+                out[i] = torch.randn(shape[1:], generator=self.gen,
+                                     dtype=torch.float32,
+                                     device=self.device) * scale
+            return out
         x = torch.randn(shape, generator=self.gen, dtype=torch.float32,
                         device=self.device)
         return (x * scale).to(dtype)
 
     def stack(self, n: int, fn: Callable) -> dict:
         """n stacked copies of a sub-tree (leading 'layers' axis), filled
-        one layer at a time: the extra memory is one layer, not n."""
-        first = fn(self)
-        out = tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), first)
+        one layer at a time: the extra memory is one layer, not n (none
+        for n = 1, whose layers axis is a view)."""
+        sub = fn(self)
+        if n == 1:
+            return tree_map(lambda x: x[None], sub)
+        out = tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), sub)
         for i in range(n):
-            sub = first if i == 0 else fn(self)
+            if i:
+                sub = fn(self)
             for dst, src in zip(tree_leaves(out), tree_leaves(sub)):
                 dst[i].copy_(src)
+            del sub                 # freed before the next layer is drawn
         return out
 
 

@@ -1,5 +1,5 @@
-"""Model bundle — the port of ``repro.models.model`` (dense, ssm, hybrid
-and encdec families).
+"""Model bundle — the port of ``repro.models.model`` (all six families:
+dense, ssm, hybrid, encdec, moe and vlm).
 
 ``build(cfg, device=...)`` returns a ``Model`` whose methods are plain
 functions on tensors:
@@ -14,8 +14,11 @@ functions on tensors:
 tree (``jax.tree.map(np.asarray, repro_model.init(key))``) into the port's
 tensors: the layouts are the same (the hybrid's lists of per-layer trees
 included), so it is a per-leaf copy. An encdec ``batch`` carries
-``frames`` (B, F, d_model) beside ``tokens`` for the prefill. The
-training loss waits for the training slice.
+``frames`` (B, F, d_model) beside ``tokens`` for the prefill; a vlm
+``batch`` carries ``vision_embeds`` (B, vision_tokens, d_model), the stub
+patch embeddings prepended to the prompt's, so its caches hold
+``vision_tokens + S`` rows and its first decode position is
+``vision_tokens + S``. The training loss waits for the training slice.
 """
 from __future__ import annotations
 
@@ -90,6 +93,13 @@ def build(cfg: ModelConfig, ctx: ShardCtx | None = None, *,
             x = x * math.sqrt(cfg.d_model)
         return x
 
+    def _prefix(p, batch):
+        """VLM: prepend the precomputed patch embeddings."""
+        x = _embed(p, batch["tokens"])
+        if cfg.family == "vlm":
+            x = torch.cat([batch["vision_embeds"].to(dtype), x], dim=1)
+        return x
+
     def _backbone(p, x, *, mode, pos, caches=None, valid_len=None,
                   enc_out=None):
         kw = dict(mode=mode, pos=pos, caches=caches, valid_len=valid_len,
@@ -107,14 +117,15 @@ def build(cfg: ModelConfig, ctx: ShardCtx | None = None, *,
         max_seq)."""
         tokens = batch["tokens"]
         B, S = tokens.shape
-        x = _embed(params, tokens)
+        x = _prefix(params, batch)
         enc_out = None
         if cfg.family == "encdec":
             enc_out = encdec_mod.encode(params["stack"], batch["frames"],
                                         cfg, ctx, plain=plain_kernels)
             x = x + sinusoidal_positions(S, cfg.d_model,
                                          x.device)[None].to(dtype)
-        pos = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        Sx = x.shape[1]
+        pos = torch.arange(Sx, device=tokens.device)[None].expand(B, Sx)
         x, _, caches = _backbone(params, x, mode="prefill", pos=pos,
                                  enc_out=enc_out)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)

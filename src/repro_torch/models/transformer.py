@@ -1,13 +1,15 @@
-"""Decoder-only stack assembly, dense and ssm families — the port of
-``repro.models.transformer`` (the hybrid and encdec families assemble
-their own stacks from its layers: ``models/hybrid.py``,
+"""Decoder-only stack assembly, dense, vlm, moe and ssm families — the
+port of ``repro.models.transformer`` (the hybrid and encdec families
+assemble their own stacks from its layers: ``models/hybrid.py``,
 ``models/encdec.py``).
 
 Parameters keep the reference's stacked layout (``stack["blk{i}"]`` leaves
 carry a leading layers axis), but the reference's ``lax.scan`` over that
 axis becomes a Python loop over the layer index ``li``. Decode writes each
 layer's new K/V (or SSM state) into the caches IN PLACE; the reference
-threads updated copies through the scan carry.
+threads updated copies through the scan carry. A MoE layer's aux scalars
+(``moe_lb``, ``moe_z``) are summed over the layers into the returned aux,
+as the reference's scan sums them.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 
 from repro_torch.core.persistent import tree_map
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (Init, apply_rope, mlp_apply,
                                        mlp_params, rms_norm)
@@ -26,7 +29,7 @@ from repro_torch.models.layers import (Init, apply_rope, mlp_apply,
 # Period spec
 # ---------------------------------------------------------------------------
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid", "encdec")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid", "encdec", "moe", "vlm")
 
 
 def period_spec(cfg) -> list[tuple[str, dict]]:
@@ -36,6 +39,11 @@ def period_spec(cfg) -> list[tuple[str, dict]]:
             f"{', '.join(PORTED_FAMILIES)})")
     if cfg.family == "ssm":
         return [("ssm", {})]
+    if cfg.family == "moe":
+        if cfg.moe.interleave == 2:
+            return [("attn_mlp", {}), ("attn_moe", {})]
+        assert cfg.moe.interleave == 1
+        return [("attn_moe", {})]
     if cfg.local_global_interleave == 2:
         return [("attn_mlp", {"local": True}), ("attn_mlp", {"local": False})]
     return [("attn_mlp", {})]
@@ -65,7 +73,10 @@ def layer_params(b: Init, cfg, kind: str):
     if cfg.sandwich_norm:
         p["ln_attn_post"] = b.p((d,), init="ones")
         p["ln_mlp_post"] = b.p((d,), init="ones")
-    p["mlp"] = mlp_params(b, d, cfg.d_ff, cfg.gated_mlp)
+    if kind == "attn_moe":
+        p["moe"] = moe_mod.moe_params(b, cfg)
+    else:
+        p["mlp"] = mlp_params(b, d, cfg.d_ff, cfg.gated_mlp)
     return p
 
 
@@ -98,12 +109,16 @@ def _attn_sub(p, x, cfg, ctx, *, local: bool, mode: str, pos,
     return x + o, new_cache
 
 
-def _ffn_sub(p, x, cfg, ctx):
+def _ffn_sub(p, x, cfg, ctx, kind: str, group_mode: str):
     h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    o = mlp_apply(p["mlp"], h, cfg.mlp_act, cfg.gated_mlp, ctx)
+    aux = {}
+    if kind == "attn_moe":
+        o, aux = moe_mod.moe_apply(p["moe"], h, cfg, ctx, group_mode)
+    else:
+        o = mlp_apply(p["mlp"], h, cfg.mlp_act, cfg.gated_mlp, ctx)
     if cfg.sandwich_norm:
         o = rms_norm(o, p["ln_mlp_post"], cfg.norm_eps)
-    return x + o
+    return x + o, aux
 
 
 def layer_apply(p, x, cfg, ctx, kind: str, opts: dict, *, mode: str, pos,
@@ -120,8 +135,10 @@ def layer_apply(p, x, cfg, ctx, kind: str, opts: dict, *, mode: str, pos,
     local = bool(opts.get("local", False))
     x, new_cache = _attn_sub(p, x, cfg, ctx, local=local, mode=mode, pos=pos,
                              cache=cache, valid_len=valid_len, plain=plain)
-    x = _ffn_sub(p, x, cfg, ctx)
-    return x, {}, new_cache
+    # decode's one MoE group takes every slot's token, inactive ones too
+    group_mode = "global" if mode == "decode" else "local"
+    x, aux = _ffn_sub(p, x, cfg, ctx, kind, group_mode)
+    return x, aux, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -161,18 +178,21 @@ def forward_stack(params, x, cfg, ctx, *, mode: str, pos,
     if mode not in ("prefill", "decode"):
         raise NotImplementedError(f"mode={mode!r} waits for the training slice")
     per_layer: dict[str, list] = {f"blk{i}": [] for i in range(len(spec))}
+    aux_acc: dict = {}
     for li in range(num_periods(cfg)):
         for i, (kind, opts) in enumerate(spec):
             key = f"blk{i}"
             cache_i = _layer(caches[key], li) if mode == "decode" else None
-            x, _, nc = layer_apply(
+            x, aux, nc = layer_apply(
                 _layer(params[key], li), x, cfg, ctx, kind, opts, mode=mode,
                 pos=pos, cache=cache_i, valid_len=valid_len, plain=plain)
+            for k, v in aux.items():
+                aux_acc[k] = aux_acc.get(k, 0.0) + v
             per_layer[key].append(nc)
     if mode == "decode":
-        return x, {}, caches
+        return x, aux_acc, caches
     new_caches = {key: stack_layers(cs) for key, cs in per_layer.items()}
-    return x, {}, new_caches
+    return x, aux_acc, new_caches
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,12 @@ stream:
 * Argmax tokens stay on the device until the runtime reads the step's
   block back; insert/decode results are therefore host tensors by the
   time a ticket resolves.
+* A vlm request (``vision_embeds`` extras) counts its image prefix in its
+  slot: the prefill writes ``vision_tokens + L`` cache rows, so the slot
+  starts at that length and decode writes at ``vision_tokens + L``,
+  ``vision_tokens + L + 1``, ... — the reference model's contract (its
+  own model tests decode there). The reference engine stages ``L`` and
+  so decodes inside the prefix; the port does not copy that.
 """
 from __future__ import annotations
 
@@ -309,16 +315,28 @@ class ServingEngine:
         the prompt runs as a chunked OP_PREFILL item through the
         dispatcher and the OP_INSERT is chained onto its resolution;
         otherwise the host runs the prefill here (enqueued on the stream)
-        and submits the insert. A prompt with ``extras`` (encdec frames:
-        {name: array without the batch axis}) always takes the host
-        prefill, which receives them as batch-1 tensors on the engine's
-        device."""
+        and submits the insert. A prompt with ``extras`` (encdec frames,
+        vlm ``vision_embeds``: {name: array without the batch axis})
+        always takes the host prefill, which receives them as batch-1
+        tensors on the engine's device. A vlm request's slot holds its
+        ``vision_tokens`` prefix rows before the prompt's; raises
+        ValueError when prefix, prompt and new tokens do not fit
+        ``max_seq``."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         L = int(prompt.shape[0])
+        V = self.cfg.vision_tokens if extras and "vision_embeds" in extras \
+            else 0
+        if V and V + L + max_new_tokens - 1 > self.max_seq - 1:
+            raise ValueError(
+                f"request {request_id}: {V} image-prefix rows + {L} prompt "
+                f"tokens + {max_new_tokens} new tokens - 1 = "
+                f"{V + L + max_new_tokens - 1} exceeds max_seq - 1 = "
+                f"{self.max_seq - 1}")
         # the prefill emits the first generated token, so the decode loop
         # contributes max_new_tokens - 1 more
         slot = self.slots.allocate(
-            request_id, L, min(L + max_new_tokens - 1, self.max_seq - 1))
+            request_id, V + L,
+            min(V + L + max_new_tokens - 1, self.max_seq - 1))
         if slot is None:
             return None
         slot_obj = self.slots.slots[slot]
@@ -352,7 +370,7 @@ class ServingEngine:
                     self.device) for k, v in extras.items()})
             logits, caches = self._prefill(batch, L)
             first = torch.argmax(logits[0, -1, :]).to(torch.int32)
-            self._stage(caches, first, L, slot)
+            self._stage(caches, first, V + L, slot)
             if tc is not None:
                 tc.emit(EV_ENGINE, cluster=self.cluster,
                         request_id=request_id, phase="host_prefill",

@@ -64,9 +64,12 @@ def pair(request):
     return cfg, j_model, j_params, model, params
 
 
-# the hybrid and encdec configs registered beside them (their models:
-# tests/test_torch_hybrid.py, tests/test_torch_encdec.py)
-@pytest.mark.parametrize("arch", ARCHS + ["zamba2-7b", "whisper-tiny"])
+# the hybrid, encdec, moe and vlm configs registered beside them (their
+# models: tests/test_torch_hybrid.py, test_torch_encdec.py,
+# test_torch_moe.py, test_torch_vlm.py)
+@pytest.mark.parametrize("arch", ARCHS + [
+    "zamba2-7b", "whisper-tiny", "llama4-maverick-400b-a17b", "grok-1-314b",
+    "internvl2-76b"])
 def test_configs_are_the_reference(arch):
     for fn in (lambda c: c, lambda c: c.reduced()):
         cfg, ref = fn(get_config(arch)), fn(j_get_config(arch))

@@ -45,7 +45,9 @@ def test_port_imports_neither_jax_nor_reference():
               "core.mega", "core.clusters", "core.elastic", "core.system",
               "system", "kernels.ssd_scan.kernel", "kernels.ssd_scan.ops",
               "models.ssm", "configs.mamba2_780m", "models.hybrid",
-              "models.encdec", "configs.zamba2_7b", "configs.whisper_tiny"):
+              "models.encdec", "configs.zamba2_7b", "configs.whisper_tiny",
+              "models.moe", "configs.llama4_maverick_400b_a17b",
+              "configs.grok1_314b", "configs.internvl2_76b"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -119,7 +121,8 @@ def test_entry_points_raise_without_cuda():
         build(cfg, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         build(cfg)                                   # the default is cuda
-    for arch in ("mamba2-780m", "zamba2-7b", "whisper-tiny"):
+    for arch in ("mamba2-780m", "zamba2-7b", "whisper-tiny",
+                 "llama4-maverick-400b-a17b", "grok-1-314b", "internvl2-76b"):
         with pytest.raises(RuntimeError, match="CUDA"):
             build(get_config(arch).reduced())
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -127,7 +130,8 @@ def test_entry_points_raise_without_cuda():
                           result_template=torch.zeros(1))
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--reduced", "--requests", "1"])
-    for arch in ("mamba2-780m", "zamba2-7b", "whisper-tiny"):
+    for arch in ("mamba2-780m", "zamba2-7b", "whisper-tiny",
+                 "llama4-maverick-400b-a17b", "grok-1-314b", "internvl2-76b"):
         with pytest.raises(RuntimeError, match="CUDA"):
             serve.main(["--arch", arch, "--reduced", "--requests", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -172,6 +176,7 @@ NOT_PORTED = {"persistent_drain_pallas",      # the Pallas TPU launch
     "repro.kernels.decode_attention", "repro.kernels.flash_attention",
     "repro.kernels.persistent", "repro.kernels.ssd_scan",
     "repro.models.hybrid", "repro.models.encdec", "repro.models.layers",
+    "repro.models.moe",
 ])
 def test_reference_public_names_importable_from_port(name):
     import importlib

@@ -64,6 +64,12 @@ FLASH_CASES = {
     # zero-filled columns)
     "d112_gqa_causal": dict(B=2, S=32, Hq=4, Hkv=2, D=112, kw={}),
     "d112_window": dict(B=1, S=40, Hq=2, Hkv=2, D=112, kw=dict(window=8)),
+    # every reduced config's head layout (4/2 heads x 32): the smoke's
+    # 17-token prompt, and a prompt past the reduced local window (64)
+    "d32_reduced_gqa_17": dict(B=1, S=17, Hq=4, Hkv=2, D=32, kw={}),
+    "d32_reduced_window64_softcap": dict(B=1, S=96, Hq=4, Hkv=2, D=32,
+                                         kw=dict(window=64,
+                                                 attn_softcap=30.0)),
 }
 
 
@@ -186,6 +192,9 @@ DECODE_CASES = {
     # the card
     "d112_ragged": dict(B=3, S=64, Hq=4, Hkv=4, D=112, valid=[64, 1, 30],
                         kw={}),
+    # the reduced configs' 4-slot decode (4/2 heads x 32)
+    "d32_reduced_4slot": dict(B=4, S=64, Hq=4, Hkv=2, D=32,
+                              valid=[64, 1, 30, 17], kw={}),
 }
 
 
@@ -341,7 +350,7 @@ def test_decode_split_count_and_cuda_geometry():
     may opt into at the largest group. FFMA (f32, and bf16 at D = 256): the
     ring of its cp.async stages, then q, the probabilities and the partial
     the cluster merge reads; tiles are whole 32-key warps. Tensor cores
-    (bf16 at D = 64 and 128): the ring, or the warps' partials and the
+    (bf16 at D = 32, 64, 112 and 128): the ring, or the warps' partials and the
     CTA's merged one laid over it once it has drained; 16 keys a warp, rows padded so the 8 rows of an
     ldmatrix read fall on distinct banks. Rings have >= 2 stages, padded
     rows keep 16-byte copies aligned. Clusters stay within the portable 8
@@ -361,7 +370,7 @@ def test_decode_split_count_and_cuda_geometry():
         assert ring + extra <= H100_SMEM_OPTIN, (dtype, d)
         assert (kstride * size) % 16 == 0
     assert k["MMA_BK"] == 16 * k["MMA_WARPS"]
-    for d in (64, 112, 128):
+    for d in (32, 64, 112, 128):
         stages = k[f"STAGES_MMA_D{d}"]
         row = (d + 8) * 2
         ring = stages * 2 * k["MMA_BK"] * row

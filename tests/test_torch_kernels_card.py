@@ -108,6 +108,21 @@ GPU_FLASH = [
     (1, 200, 4, 4, 112, torch.float32, dict(window=48, attn_softcap=30.0)),
     # whisper-tiny's encoder: 1500 frames, 6/6 heads x 64, non-causal
     (1, 1500, 6, 6, 64, torch.bfloat16, dict(causal=False)),
+    # D = 32 (every reduced config, 4/2 heads): the f32 FFMA kernel (4
+    # threads a row of 8 dims) at the smoke's prompt and across query
+    # blocks with a window and softcap; the bf16 kernel at its 64-wide
+    # compute width over 32-wide tensor maps, short and long instances
+    (1, 17, 4, 2, 32, torch.float32, {}),
+    (2, 200, 4, 2, 32, torch.float32, dict(window=64, attn_softcap=30.0)),
+    (1, 17, 4, 2, 32, torch.bfloat16, {}),
+    (2, 300, 4, 2, 32, torch.bfloat16, dict(window=100)),
+    # the moe and vlm families at full width, D = 128: GQA 5 (llama4,
+    # 40/8), GQA 6 with softcap 30 (grok-1, 48/8), GQA 8 over a 256-token
+    # image prefix plus a 17-token prompt (internvl2-76b, 64/8)
+    (1, 17, 40, 8, 128, torch.bfloat16, {}),
+    (1, 17, 48, 8, 128, torch.bfloat16, dict(attn_softcap=30.0)),
+    (1, 300, 48, 8, 128, torch.bfloat16, dict(attn_softcap=30.0)),
+    (1, 273, 64, 8, 128, torch.bfloat16, {}),
 ]
 
 
@@ -225,6 +240,20 @@ GPU_DECODE = [
     (2, 3000, 8, 8, 112, torch.bfloat16, [3000, 1200], dict(window=1000)),
     (2, 300, 8, 4, 112, torch.float32, [300, 45], {}),
     (4, 1500, 6, 6, 64, torch.bfloat16, [1500] * 4, {}),
+    # D = 32 (every reduced config: 4/2 heads, the 4-slot smoke decode):
+    # f32 (8 lanes of 4 dims in P.V) and bf16 (2 k16 steps, 4 n8 tiles)
+    (4, 128, 4, 2, 32, torch.float32, [128, 1, 77, 64], {}),
+    (2, 300, 4, 1, 32, torch.float32, [300, 45],
+     dict(window=64, attn_softcap=30.0)),
+    (4, 128, 4, 2, 32, torch.bfloat16, [128, 1, 77, 64], {}),
+    (2, 1000, 8, 2, 32, torch.bfloat16, [1000, 333], dict(window=300)),
+    # full-width moe and vlm at D = 128: G = 5 and 6 leave rows of the
+    # m16 tile unused (zero q rows, never stored); grok-1's softcap 30;
+    # internvl2-76b's 4 slots over 256 prefix rows and their prompts
+    (4, 128, 40, 8, 128, torch.bfloat16, [128, 1, 77, 64], {}),
+    (4, 128, 48, 8, 128, torch.bfloat16, [128, 1, 77, 64],
+     dict(attn_softcap=30.0)),
+    (4, 512, 64, 8, 128, torch.bfloat16, [262, 270, 279, 290], {}),
 ]
 
 
@@ -381,6 +410,10 @@ GPU_SSD = [
     (1, 1, 17, 112, 64, 64),
     (1, 8, 256, 112, 64, 64),
     (4, 1, 256, 112, 64, 64),
+    # the reduced SSM (mamba2-780m and zamba2-7b --smoke): P = 16, N = 16,
+    # 32-row chunks: a 17-token prompt and two full chunks
+    (1, 1, 17, 16, 16, 16),
+    (2, 2, 32, 16, 16, 16),
 ]
 
 
@@ -421,19 +454,25 @@ def test_ssd_chunk_kernel_holds_its_split_on_card(cuda, case, B, C, L, H, P,
                                rtol=1e-4)
 
 
-def _device_kernels(fn, calls=5):
+def _device_kernels(fn, calls=5, passes=3):
     """Names of the device kernels ``calls`` eager ``fn`` calls launch
     (``torch.profiler``); None where the profiler records no device
-    activity."""
+    activity. ``fn`` launches at least one kernel a call, so a pass with
+    fewer names than calls lost activity records (seen on the card: 4 of
+    5) and is made again, up to ``passes`` passes."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    for _ in range(passes):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type.name == "CUDA"]
+        if len(names) >= calls:
+            break
     return names or None
 
 

@@ -324,12 +324,14 @@ def test_reduced_config_and_init_follow_reference():
     ("moe", dict(moe=MoEConfig(num_experts=4, top_k=2))),
     ("vlm", dict(ssm=None))])
 def test_unported_families_still_raise(family, extra):
-    """moe and vlm wait for a later slice (hybrid and encdec are ported:
-    tests/test_torch_hybrid.py, tests/test_torch_encdec.py)."""
+    """Every family the reference assembles is ported now (moe and vlm
+    last: tests/test_torch_moe.py, tests/test_torch_vlm.py), so these
+    build; a family name outside the reference's six still raises."""
     cfg = dataclasses.replace(get_config("mamba2-780m").reduced(),
                               family=family, **extra)
+    assert build(cfg, device="cpu").init(0)["stack"]
     with pytest.raises(NotImplementedError, match="not ported"):
-        build(cfg, device="cpu")
+        build(dataclasses.replace(cfg, family="diffusion"), device="cpu")
 
 
 def test_dense_prefill_caches_still_padded():
