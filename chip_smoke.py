@@ -104,6 +104,24 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    (the reduced configs: f32, head dim 32): every request completes,
    ``met == n``, K5/K4 launched (K6 for ssm and hybrid), no plain
    attention or SSD called;
+4h. training (``repro_torch.launch.train.main``), with K4/K5/K6 launched
+   0 times in every run and the plain attention/SSD above 0 (train mode
+   takes them, as the reference trains through XLA): 8 steps of every
+   arch the tokens-only loader feeds (dense x4, ssm, hybrid, moe x2) at
+   ``--reduced``, finite losses and grad norms, the last loss below the
+   first (the two 8-bit moe configs again with fp32 AdamW for that check:
+   the reference's 8-bit AdamW diverges there too); reduced llama3-8b with
+   a checkpoint every 2 steps, a resume from ``step_2`` alone (restored
+   tensors' sha256 equal to the manifest's on the card, step 3's loss
+   within 1e-5 of the uninterrupted run); grok-1 reduced (adamw8bit) with
+   ``moe_lb > 0`` and ``loss >= ce``; llama3-8b at full width with 8 of
+   32 layers and mamba2-780m whole, 10 steps each (bf16; finite losses,
+   the mean of the last three below the first), each step's host time,
+   tokens per second, weights and peak memory, one profiled step's
+   device-busy share, the optimizer's share of a step, and the matmul and
+   optimizer-byte floors by arithmetic; one reduced llama3-8b train step
+   x3 on the card and on the CPU from the same parameters and batches
+   (f32, TF32 off): loss within 1e-5 relative, parameters within 1e-4;
 5. tile kernels: the drain megakernel (K1), its flight-recorder variant
    (K2) and the legacy executor (K3) against their plain versions at
    C = 132 clusters (one worker per SM), Q = 64 rows, nbuf = 8 tiles, on a
@@ -150,6 +168,7 @@ import gc
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -165,7 +184,8 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.core import mailbox as mb  # noqa: E402
 from repro_torch.core.dispatcher import Dispatcher  # noqa: E402
 from repro_torch.core.mega import MegaRuntime, mega_work_classes  # noqa: E402
-from repro_torch.core.persistent import reap_deferred, tree_leaves  # noqa: E402
+from repro_torch.core.persistent import (  # noqa: E402
+    reap_deferred, tree_leaves, tree_map)
 from repro_torch.core.sched import EdfPolicy  # noqa: E402
 from repro_torch.core.telemetry import (EV_CHUNK_RETIRE,  # noqa: E402
                                         EV_TRIGGER, TraceCollector)
@@ -180,7 +200,15 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_chunk, ssd_chunk_plain)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.checkpoint.checkpoint import (  # noqa: E402
+    _flatten_with_names, _sha256, _to_storable)
 from repro_torch.launch import serve, top, trace  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.optim.optimizer import adamw_update  # noqa: E402
+from repro_torch.training import (init_state, make_train_step,  # noqa: E402
+                                  opt_config_for)
+from repro_torch.training.train_loop import _value_and_grad  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
@@ -1676,6 +1704,340 @@ def smoke_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4h: training on the card
+# ---------------------------------------------------------------------------
+
+# every arch the tokens-only loader feeds (encdec and vlm need frames /
+# patch embeddings in the batch: launch.train refuses them)
+TRAIN_ARCHS = ("llama3-8b", "gemma2-2b", "mistral-nemo-12b", "qwen2-72b",
+               "mamba2-780m", "zamba2-7b", "llama4-maverick-400b-a17b",
+               "grok-1-314b")
+TRAIN_REDUCED = ["--reduced", "--steps", "8", "--batch", "4", "--seq", "64",
+                 "--log-every", "1"]
+TRAIN_FULL = ["--batch", "8", "--seq", "256", "--steps", "10",
+              "--log-every", "1"]
+STEP_LINE = re.compile(r"\[train\] step=(\d+) loss=(\S+) ce=(\S+) "
+                       r"gnorm=(\S+) lr=(\S+) step_ms=(\S+)")
+OPT_BYTES_PER_PARAM = 22   # bf16 p, g read; f32 m, v read and written; p written
+RESUME_TOL = 1e-5
+CARD_CPU_LOSS_RTOL, CARD_CPU_PARAM_ATOL = 1e-5, 1e-4
+ADAM_ILL = 100        # x AdamW's eps: a clipped gradient below it is near eps
+
+
+class _Tee:
+    """Standard output copied into a buffer as it is written."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def train_run(label: str, argv: list, cfg=None) -> dict:
+    """``launch.train.main(argv, cfg=cfg)`` with every launch counter
+    zeroed before and read after (all must stay 0: no kernel has a
+    backward) and the plain attention/SSD calls counted. Returns the
+    logged steps, the final metrics, the launches, the plain calls and the
+    run's peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tee = _Tee(sys.stdout)
+    with plain_calls() as plain, contextlib.redirect_stdout(tee):
+        zero_launches()
+        metrics = train_cli.main(argv, cfg=cfg)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    steps = [dict(step=int(m[1]), loss=float(m[2]), ce=float(m[3]),
+                  gnorm=float(m[4]), lr=float(m[5]), step_ms=float(m[6]))
+             for m in STEP_LINE.finditer("".join(tee.text))]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    bad = [n for n, k in launches.items() if k]
+    if bad:
+        raise SystemExit(f"train[{label}]: kernels launched in a train run: "
+                         f"{launches}")
+    finite = all(math.isfinite(x) for st in steps
+                 for x in (st["loss"], st["gnorm"])) and \
+        all(math.isfinite(v) for v in metrics.values())
+    if not steps or not finite:
+        raise SystemExit(f"train[{label}]: non-finite or missing steps "
+                         f"{steps} {metrics}")
+    return dict(steps=steps, metrics=metrics, launches=launches,
+                plain=dict(plain), peak_gib=peak)
+
+
+def _need_plain(label: str, fam: str, plain: dict) -> None:
+    want = [] if fam == "ssm" else ["flash_attention_plain"]
+    if fam in ("ssm", "hybrid"):
+        want.append("ssd_chunk_plain")
+    missing = [n for n in want if not plain.get(n)]
+    if missing:
+        raise SystemExit(f"train[{label}]: train mode never called {missing} "
+                         f"(plain calls {plain})")
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_reduced_runs() -> dict:
+    """8 steps of each TRAIN_ARCHS config at --reduced: finite, the last
+    loss below the first. The 8-bit AdamW configs (llama4, grok-1) diverge
+    in both packages (its int8 second moment rounds small entries to 0,
+    where the update is m / eps); their runs are held to finiteness and
+    repeated with fp32 AdamW for the falling-loss check."""
+    out = {}
+    for arch in TRAIN_ARCHS:
+        cfg = get_config(arch).reduced()
+        runs = [(arch, None)]
+        if cfg.optimizer != "adamw":
+            runs.append((f"{arch}+adamw",
+                         dataclasses.replace(cfg, optimizer="adamw")))
+        for label, over in runs:
+            r = train_run(label, ["--arch", arch] + TRAIN_REDUCED, cfg=over)
+            _need_plain(label, cfg.family, r["plain"])
+            first, last = r["steps"][0]["loss"], r["steps"][-1]["loss"]
+            falls = last < first
+            log(f"train[{label}] reduced losses "
+                f"{[st['loss'] for st in r['steps']]} gnorms "
+                f"{[st['gnorm'] for st in r['steps']]} plain calls "
+                f"{r['plain']} launches {r['launches']}")
+            eightbit = (over or cfg).optimizer != "adamw"
+            if not falls and not eightbit:
+                raise SystemExit(f"train[{label}]: last loss {last} not below "
+                                 f"the first {first}")
+            out[label] = dict(first=first, last=last, falls=falls,
+                              plain=r["plain"])
+            _free()
+    return out
+
+
+def train_resume_check() -> dict:
+    """Reduced llama3-8b, 4 steps with a checkpoint every 2; a second run
+    resumes from a directory holding ``step_2`` alone. The restored
+    tensors on the card are the saved bytes (sha256 against the
+    manifest); step 3's loss agrees within RESUME_TOL."""
+    root = OUT / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    base = ["--arch", "llama3-8b", "--reduced", "--steps", "4", "--batch",
+            "4", "--seq", "64", "--log-every", "1", "--ckpt-every", "2"]
+    full = train_run("ckpt", base + ["--ckpt-dir", str(root / "full")])
+    steps = CheckpointManager(str(root / "full")).all_steps()
+    if steps != [2, 4]:
+        raise SystemExit(f"train[ckpt]: checkpoints {steps}, want [2, 4]")
+    shutil.copytree(root / "full" / "step_0000000002",
+                    root / "resume" / "step_0000000002")
+    # the restored tensors on the card carry the saved bytes
+    cm = CheckpointManager(str(root / "resume"))
+    cfg = get_config("llama3-8b").reduced()
+    model = build(cfg, device="cuda")
+    params, opt = init_state(model, opt_config_for(cfg), 0)
+    back = cm.restore(2, {"params": params, "opt": opt})
+    entries = cm.manifest(2)["entries"]
+    named = _flatten_with_names(back)
+    bad = [n for n, t in named
+           if _sha256(_to_storable(t)[0]) != entries[n]["sha256"]
+           or t.device.type != "cuda"]
+    if bad or len(named) != len(entries):
+        raise SystemExit(f"train[resume]: restored tensors differ from the "
+                         f"saved ones: {bad[:5]}")
+    del params, opt, back
+    resumed = train_run("resume", base + ["--ckpt-dir", str(root / "resume"),
+                                          "--resume"])
+    a, b = full["metrics"]["loss"], resumed["metrics"]["loss"]
+    log(f"train[resume] {len(named)} tensors restored on the card, sha256 "
+        f"equal to the manifest; step 3 loss uninterrupted {a!r} resumed "
+        f"{b!r} (|diff| {abs(a - b):.3g}, tolerance {RESUME_TOL})")
+    if abs(a - b) > RESUME_TOL or [s["step"] for s in resumed["steps"]] \
+            != [2, 3]:
+        raise SystemExit(f"train[resume]: step 3 loss {b} vs {a}, steps "
+                         f"{resumed['steps']}")
+    _free()
+    return dict(tensors=len(named), loss=a, resumed_loss=b)
+
+
+def train_moe_8bit_check() -> dict:
+    """grok-1 reduced, adamw8bit, 4 steps: moe_lb > 0, loss >= ce."""
+    r = train_run("grok-1 8bit", ["--arch", "grok-1-314b", "--reduced",
+                                  "--steps", "4", "--batch", "4", "--seq",
+                                  "64", "--log-every", "1"])
+    m = r["metrics"]
+    log(f"train[grok-1 8bit] last metrics {m}")
+    if not (m["moe_lb"] > 0 and m["loss"] >= m["ce"]):
+        raise SystemExit(f"train[grok-1 8bit]: moe_lb {m['moe_lb']}, loss "
+                         f"{m['loss']} < ce {m['ce']}")
+    _free()
+    return m
+
+
+def matmul_params(cfg) -> int:
+    """Parameters that enter a matmul once a token: all but the embedding
+    table when it is not also the head, the norms' and the SSM's per-head
+    vectors (small, counted in: a floor stays a floor)."""
+    n = cfg.param_count()
+    if not cfg.tie_embeddings:
+        n -= cfg.padded_vocab * cfg.d_model
+    return n
+
+
+def train_full_width(label: str, cfg, argv: list, smi: str) -> dict:
+    """10 steps through ``main(argv, cfg=cfg)``, then one profiled step
+    and the optimizer's own time on fresh weights of the same config."""
+    n_params = cfg.param_count()
+    weights_gib = n_params * 2 / 2**30
+    log(f"train[{label}] {cfg.num_layers} layers, d={cfg.d_model}, vocab "
+        f"{cfg.vocab_size}, {n_params / 1e9:.3f} G parameters: bf16 weights "
+        f"{weights_gib:.2f} GiB, state (bf16 p and g, f32 m and v) "
+        f"{n_params * 12 / 2**30:.1f} GiB | {smi}")
+    r = train_run(label, argv, cfg=cfg)
+    _need_plain(label, cfg.family, r["plain"])
+    losses = [st["loss"] for st in r["steps"]]
+    if not sum(losses[-3:]) / 3 < losses[0]:
+        raise SystemExit(f"train[{label}]: mean of the last three losses not "
+                         f"below the first: {losses}")
+    _free()
+    B, S = 8, 256
+    tokens = B * S
+    model = build(cfg, device="cuda")
+    ocfg = opt_config_for(cfg, lr=3e-4)
+    params, opt = init_state(model, ocfg, 0)
+    step = make_train_step(model, ocfg, donate=True)
+    gen = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(gen.integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()}
+    for _ in range(2):
+        params, opt, m = step(params, opt, batch)
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, busy = busy_share(prof, "")
+    grads, _ = _value_and_grad(model.loss, params, batch)
+    opt_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            params, opt, _ = adamw_update(ocfg, params, grads, opt,
+                                          donate=True)
+        torch.cuda.synchronize()
+        opt_ms.append((time.perf_counter() - t0) * 1e3)
+    del grads, params, opt, m
+    _free()
+    step_ms = [st["step_ms"] for st in r["steps"]]
+    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]    # median, steps 1+
+    opt_share = min(opt_ms) / steady
+    flops = 8 * matmul_params(cfg) * tokens   # fwd 2 + remat 2 + bwd 4
+    mm_floor = flops / PEAK_OPS[torch.bfloat16] * 1e3
+    opt_floor = n_params * OPT_BYTES_PER_PARAM / HBM_BYTES_PER_S * 1e3
+    out = dict(losses=losses, step_ms=step_ms, steady_step_ms=steady,
+               tokens_per_s=tokens / steady * 1e3, busy_share=busy,
+               busy_ms=busy_ms, profiled_step_ms=prof_ms,
+               optimizer_ms=min(opt_ms), optimizer_share=opt_share,
+               weights_gib=weights_gib, peak_gib=r["peak_gib"],
+               matmul_floor_ms=mm_floor, optimizer_floor_ms=opt_floor,
+               plain=r["plain"])
+    log(f"train[{label}] losses {losses}")
+    log(f"train[{label}] step host ms {[round(x, 2) for x in step_ms]} "
+        f"(median of steps 1+ {steady:.2f} ms, {tokens / steady * 1e3:.0f} "
+        f"tokens/s); profiled step {prof_ms:.2f} ms, device busy "
+        f"{busy_ms:.2f} ms, share {busy:.3f}; optimizer {min(opt_ms):.2f} ms "
+        f"(runs {[round(x, 2) for x in opt_ms]}), share {opt_share:.3f}; "
+        f"floors: matmul {mm_floor:.1f} ms ({flops / 1e12:.1f} TFLOP at "
+        f"989 TFLOPS bf16), optimizer bytes {opt_floor:.1f} ms "
+        f"({OPT_BYTES_PER_PARAM} B a parameter at 3.35 TB/s); weights "
+        f"{weights_gib:.2f} GiB, peak memory {r['peak_gib']:.2f} GiB | {smi}")
+    return out
+
+
+def card_cpu_train_check() -> dict:
+    """Reduced llama3-8b: ``make_train_step`` x3 on the card and on the
+    CPU from the same parameters and batches, f32 with TF32 off: loss
+    within 1e-5 relative, parameters within 1e-4. AdamW divides by
+    |g| + eps (1e-8): where a clipped gradient is near eps, the f32
+    rounding of g (1e-7 of a leaf's largest |g|, summed in another order
+    on each device) moves the update by up to 2 lr a step. Elements whose
+    clipped CPU gradient fell below ADAM_ILL (100 eps) but not to 0 at a
+    step are counted and held to that bound instead."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim.optimizer import clip_by_global_norm
+    cfg = get_config("llama3-8b").reduced()
+    cpu_model = build(cfg, device="cpu")
+    card_model = build(cfg, device="cuda")
+    lr, steps = 1e-3, 3
+    ocfg = opt_config_for(cfg, lr=lr)
+    p_cpu, o_cpu = init_state(cpu_model, ocfg, 0)
+    p_card = tree_map(lambda t: t.cuda(), p_cpu)
+    o_card = tree_map(lambda t: t.cuda(), o_cpu)
+    s_cpu = make_train_step(cpu_model, ocfg)
+    s_card = make_train_step(card_model, ocfg)
+    ds = SyntheticLM(cfg.vocab_size, seed=3)
+    worst_loss = 0.0
+    ill = [torch.zeros(t.shape, dtype=torch.bool) for t in tree_leaves(p_cpu)]
+    for i in range(steps):
+        toks = torch.from_numpy(ds.batch(i, 4, 64))
+        grads, _ = _value_and_grad(cpu_model.loss, p_cpu, {"tokens": toks})
+        clipped, _ = clip_by_global_norm(grads, ocfg.max_grad_norm)
+        for m, g in zip(ill, tree_leaves(clipped)):
+            m |= (g != 0) & (g.abs() < ADAM_ILL * ocfg.eps)
+        p_cpu, o_cpu, m_cpu = s_cpu(p_cpu, o_cpu, {"tokens": toks})
+        p_card, o_card, m_card = s_card(p_card, o_card,
+                                        {"tokens": toks.cuda()})
+        rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / \
+            abs(float(m_cpu["loss"]))
+        worst_loss = max(worst_loss, rel)
+    worst_p = worst_ill = 0.0
+    n_ill = 0
+    for m, a, b in zip(ill, tree_leaves(p_card), tree_leaves(p_cpu)):
+        d = (a.cpu() - b).abs()
+        worst_p = max(worst_p, float(d[~m].max()) if (~m).any() else 0.0)
+        if m.any():
+            worst_ill = max(worst_ill, float(d[m].max()))
+            n_ill += int(m.sum())
+    ill_bound = 2 * lr * steps
+    log(f"train[card vs cpu] reduced llama3-8b, {steps} steps: loss rel diff "
+        f"{worst_loss:.3g} (tolerance {CARD_CPU_LOSS_RTOL}), params max abs "
+        f"diff {worst_p:.3g} (tolerance {CARD_CPU_PARAM_ATOL}); {n_ill} "
+        f"elements with a nonzero clipped gradient under {ADAM_ILL} eps: "
+        f"max abs "
+        f"diff {worst_ill:.3g} (bound {ill_bound})")
+    if worst_loss > CARD_CPU_LOSS_RTOL or worst_p > CARD_CPU_PARAM_ATOL or \
+            worst_ill > ill_bound:
+        raise SystemExit("train[card vs cpu]: the card's train step "
+                         "disagrees with the CPU's")
+    return dict(loss_rel=worst_loss, param_abs=worst_p, ill_elements=n_ill,
+                ill_param_abs=worst_ill)
+
+
+def train_phase(smi: str) -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    out = dict(reduced=train_reduced_runs(), resume=train_resume_check(),
+               grok_8bit=train_moe_8bit_check())
+    out["llama3_8b_8_layers"] = train_full_width(
+        "llama3-8b 8L", dataclasses.replace(get_config("llama3-8b"),
+                                            num_layers=8),
+        TRAIN_FULL + ["--lr", "3e-4"], smi)
+    out["mamba2_780m"] = train_full_width(
+        "mamba2-780m", get_config("mamba2-780m"),
+        ["--arch", "mamba2-780m"] + TRAIN_FULL, smi)
+    out["card_vs_cpu"] = card_cpu_train_check()
+    log(f"train phase {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: tile kernels vs plain at 132 clusters
 # ---------------------------------------------------------------------------
 
@@ -2282,6 +2644,7 @@ def main(argv=None) -> int:
     encdec = encdec_phase(chunked_args)
     moe_vlm = moe_vlm_phase(chunked_args)
     smoke = smoke_phase()
+    training = train_phase(smi)
     new_runs = {k: v for phase in (hybrid, encdec, moe_vlm)
                 for k, v in phase.items() if k.endswith("_prefill")}
     new_runs.update({f"smoke_{arch.replace('-', '_')}": launched

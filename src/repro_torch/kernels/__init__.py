@@ -10,3 +10,18 @@
 #                      (K6); ops.ssd adds the inter-chunk recurrence
 #   persistent/        the drain megakernel (K1/K2) and the legacy work-queue
 #                      executor (K3) over 128x128 f32 tile workspaces
+
+import torch
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where autograd would record a call of kernel ``name``: the
+    kernels write their outputs through raw pointers and have no backward,
+    so their outputs would carry no gradient. Train mode takes the plain
+    versions (differentiable PyTorch); call a wrapper under
+    ``torch.no_grad()``, or with tensors that do not require grad."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: an input requires grad with grad mode "
+            f"on, and the kernel's output would carry no gradient (train "
+            f"through the plain version, or call it under torch.no_grad())")

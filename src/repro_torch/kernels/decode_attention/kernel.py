@@ -20,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 HEAD_DIMS = (32, 64, 112, 128, 256)
@@ -123,6 +123,7 @@ def decode_attention(q, k_cache, v_cache, valid_len, *,
     (B,1,Hq,D). CUDA tensors launch the Hopper kernel on the current
     stream (one launch, no synchronization, no scratch); CPU tensors take
     the plain version. ``decode_attention.launches`` counts launches."""
+    refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, valid_len,
                                       attn_softcap=attn_softcap,

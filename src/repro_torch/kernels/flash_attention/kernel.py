@@ -22,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (32, 64, 112, 128, 256)
@@ -118,6 +118,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     without a causal mask or a window. CUDA tensors launch the Hopper kernel
     on the current stream (no synchronization); CPU tensors take the plain
     version. ``flash_attention.launches`` counts kernel launches."""
+    refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      attn_softcap=attn_softcap,

@@ -17,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 MAX_HEAD_DIM = 64        # P: one 64-wide tensor-core tile of a head
@@ -102,6 +102,7 @@ def ssd_chunk(x, dt, cum, Bm, Cm):
     Hopper kernel on the current stream (no synchronization); CPU tensors
     take the plain version. ``ssd_chunk.launches`` counts kernel launches
     (one a call, one device kernel computing both outputs)."""
+    refuse_grad("ssd_chunk", x, dt, cum, Bm, Cm)
     if x.device.type == "cpu":
         return ssd_chunk_plain(x, dt, cum, Bm, Cm)
     _check(x, dt, cum, Bm, Cm)

@@ -16,7 +16,8 @@ frames) goes through K4 with ``valid_len = F`` and no window: the same
 function as K5 at Sq = 1, and K4 splits the 1500 frames over a cluster
 of CTAs where K5 would give each (slot, head) one CTA. The reference's
 ``lax.scan`` over layers becomes a Python loop; decode writes the self
-K/V caches IN PLACE.
+K/V caches IN PLACE. Train mode takes the plain attention, unbinds the
+stacks once and checkpoints each layer's body by ``remat_wrap``.
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (Init, mlp_apply, mlp_params, rms_norm,
                                        sinusoidal_positions)
-from repro_torch.models.transformer import _layer, stack_layers
+from repro_torch.models.transformer import (_layer, remat_wrap,
+                                            stack_layers, unstack_layers)
 
 
 def _enc_layer_params(b: Init, cfg):
@@ -61,20 +63,28 @@ def encdec_params(b: Init, cfg):
     }
 
 
-def encode(params, frames, cfg, ctx, *, plain: bool = False):
+def encode(params, frames, cfg, ctx, *, plain: bool = False,
+           mode: str = "prefill"):
     """frames: (B,F,d_model) stub embeddings -> (B,F,d_model)."""
     B, F, d = frames.shape
+    train = mode == "train"
     x = frames.to(getattr(torch, cfg.dtype))
     x = x + sinusoidal_positions(F, d, x.device)[None].to(x.dtype)
     x = ctx.constrain(x, "act_batch", "act_seq", "act_embed")
-    for li in range(cfg.encoder_layers):
-        lp = _layer(params["enc"], li)
+
+    def body(x, lp):
         h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
         q, k, v = attn.qkv_project(lp["attn"], h, ctx)
-        o = attn.attention(q, k, v, cfg, ctx, causal=False, plain=plain)
+        o = attn.attention(q, k, v, cfg, ctx, causal=False,
+                           plain=plain or train)
         x = x + attn.out_project(lp["attn"], o, ctx)
         h = rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
-        x = x + mlp_apply(lp["mlp"], h, cfg.mlp_act, cfg.gated_mlp, ctx)
+        return x + mlp_apply(lp["mlp"], h, cfg.mlp_act, cfg.gated_mlp, ctx)
+
+    if train:
+        body = remat_wrap(body, cfg)
+    for lp in unstack_layers(params["enc"], cfg.encoder_layers):
+        x = body(x, lp)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -89,9 +99,10 @@ def decoder_forward(params, x, enc_out, cfg, ctx, *, mode: str, pos,
     """x: (B,S,d) embedded tokens. enc_out: (B,F,d), or None in decode
     (which reads the cached cross K/V). Returns (x, caches): prefill builds
     them ({"self", "cross"}, K/V (L, B, S or F, Hkv, D)); decode updates
-    the self caches in place and returns ``caches``."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mode={mode!r} waits for the training slice")
+    the self caches in place and returns ``caches``; train mode returns
+    (x, None)."""
+    if mode == "train":
+        return _train_decoder(params, x, enc_out, cfg, ctx), None
     decode = mode == "decode"
     selfs, crosses = [], []
     frames_len = None
@@ -134,6 +145,26 @@ def decoder_forward(params, x, enc_out, cfg, ctx, *, mode: str, pos,
     if decode:
         return x, caches
     return x, {"self": stack_layers(selfs), "cross": stack_layers(crosses)}
+
+
+def _train_decoder(params, x, enc_out, cfg, ctx):
+    def body(x, lp):
+        h = rms_norm(x, lp["ln_self"], cfg.norm_eps)
+        q, k, v = attn.qkv_project(lp["self_attn"], h, ctx)
+        o = attn.attention(q, k, v, cfg, ctx, causal=True, plain=True)
+        x = x + attn.out_project(lp["self_attn"], o, ctx)
+        h = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
+        qc = attn._proj(h, lp["cross_attn"]["wq"])
+        kx, vx = _cross_kv(lp, enc_out, ctx)
+        oc = attn.attention(qc, kx, vx, cfg, ctx, causal=False, plain=True)
+        x = x + attn.out_project(lp["cross_attn"], oc, ctx)
+        h = rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
+        return x + mlp_apply(lp["mlp"], h, cfg.mlp_act, cfg.gated_mlp, ctx)
+
+    body = remat_wrap(body, cfg)
+    for lp in unstack_layers(params["dec"], cfg.num_layers):
+        x = body(x, lp)
+    return x
 
 
 def encdec_init_caches(cfg, batch: int, max_seq: int, device):

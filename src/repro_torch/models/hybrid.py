@@ -11,6 +11,8 @@ Zamba2 are omitted, as in the reference. Layout: ``groups`` of
 The reference's ``lax.scan`` over the groups becomes a Python loop over the
 group index; decode writes each invocation's K/V and each layer's SSM state
 into the caches IN PLACE, through views of the stacked cache tensors.
+Train mode unbinds the stacks once and checkpoints each group's body by
+``remat_wrap``, as the reference does (the tail layers are not wrapped).
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ from repro_torch.core.persistent import tree_map
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import Init
 from repro_torch.models.transformer import (_layer, layer_apply,
-                                            layer_params, stack_layers)
+                                            layer_params, remat_wrap,
+                                            stack_layers, unstack_layers)
 
 
 def _counts(cfg):
@@ -62,9 +65,10 @@ def hybrid_forward(params, x, cfg, ctx, *, mode: str, pos,
     """x: (B,S,d) embedded input. Returns (x, aux, caches): prefill builds
     the caches (``shared_attn`` K/V (groups, B, S, Hkv, D), ``ssm_groups``
     a list of ``every`` state trees stacked over groups, ``ssm_tail``);
-    decode updates ``caches`` in place and returns it."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mode={mode!r} waits for the training slice")
+    decode updates ``caches`` in place and returns it. Train mode returns
+    (x, aux)."""
+    if mode == "train":
+        return _train_forward(params, x, cfg, ctx, pos)
     decode = mode == "decode"
     groups, every, tail = _counts(cfg)
     x0 = x
@@ -93,6 +97,30 @@ def hybrid_forward(params, x, cfg, ctx, *, mode: str, pos,
     if tail:
         new_caches["ssm_tail"] = stack_layers(tail_new)
     return x, {}, new_caches
+
+
+def _train_forward(params, x, cfg, ctx, pos):
+    groups, every, tail = _counts(cfg)
+    x0 = x
+    stacks = [unstack_layers(g, groups) for g in params["groups"]]
+
+    def group(x, *lps):
+        x, _, _ = _shared_apply(params["shared"], x, x0, cfg, ctx,
+                                mode="train", pos=pos, cache=None,
+                                valid_len=None, plain=True)
+        for lp in lps:
+            x, _, _ = layer_apply(lp, x, cfg, ctx, "ssm", {}, mode="train",
+                                  pos=pos)
+        return x
+
+    body = remat_wrap(group, cfg)
+    for gi in range(groups):
+        x = body(x, *(layers[gi] for layers in stacks))
+    if tail:
+        for lp in unstack_layers(params["tail"], tail):
+            x, _, _ = layer_apply(lp, x, cfg, ctx, "ssm", {}, mode="train",
+                                  pos=pos)
+    return x, {}
 
 
 def hybrid_init_caches(cfg, batch: int, max_seq: int, device):

@@ -5,6 +5,8 @@ dense, ssm, hybrid, encdec, moe and vlm).
 functions on tensors:
 
 * ``init(seed) -> params`` (drawn on ``device`` from a ``torch.Generator``)
+* ``loss(params, batch) -> (scalar, metrics)`` (the train step's body;
+  differentiable, through the plain attention and SSD)
 * ``prefill(params, batch, max_seq) -> (logits, caches)``
 * ``decode_step(params, caches, tokens, positions) -> (logits, caches)``
   — the caches are updated IN PLACE and returned
@@ -18,7 +20,10 @@ included), so it is a per-leaf copy. An encdec ``batch`` carries
 ``batch`` carries ``vision_embeds`` (B, vision_tokens, d_model), the stub
 patch embeddings prepended to the prompt's, so its caches hold
 ``vision_tokens + S`` rows and its first decode position is
-``vision_tokens + S``. The training loss waits for the training slice.
+``vision_tokens + S``. ``loss`` reads the same keys: next-token
+cross-entropy on the text region (past a vlm's prefix), an encdec's frames
+through the encoder, every aux scalar (``moe_lb``, ``moe_z``) added to the
+total.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from typing import Callable
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.persistent import check_device, tree_map
@@ -41,12 +47,55 @@ from repro_torch.models.layers import (Init, embed_lookup, embed_params,
                                        sinusoidal_positions, unembed)
 
 
+# ---------------------------------------------------------------------------
+# Chunked cross-entropy (bounds logit materialization to (B, chunk, V))
+# ---------------------------------------------------------------------------
+
+def chunked_ce(hidden, targets, mask, embed_p, cfg, ctx):
+    """hidden: (B,S,d) — predicts targets (B,S) at the same index.
+
+    Returns (sum_ce, sum_mask, sum_correct) as f32 scalars. Each chunk's
+    logits are recomputed in backward (``checkpoint``, the reference's
+    ``jax.checkpoint``); padded-vocab columns stay in the log-sum-exp and
+    the argmax, as in the reference."""
+    B, S, d = hidden.shape
+    chunk = min(cfg.loss_chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+
+    def body(h, t, m):
+        logits = unembed(embed_p, h, cfg.tie_embeddings, cfg.logit_softcap,
+                         ctx).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        true = torch.gather(logits, -1, t[..., None].long())[..., 0]
+        ce = (lse - true) * m
+        acc = torch.sum((torch.argmax(logits, dim=-1) == t) * m)
+        return torch.sum(ce), torch.sum(m), acc
+
+    z = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    ce_sum, n_sum, acc_sum = z, z, z
+    for lo in range(0, hidden.shape[1], chunk):
+        c, n, a = checkpoint(body, hidden[:, lo:lo + chunk],
+                             targets[:, lo:lo + chunk],
+                             mask[:, lo:lo + chunk], use_reentrant=False)
+        ce_sum, n_sum, acc_sum = ce_sum + c, n_sum + n, acc_sum + a
+    return ce_sum, n_sum, acc_sum
+
+
+# ---------------------------------------------------------------------------
+# Model bundle
+# ---------------------------------------------------------------------------
+
 @dataclass
 class Model:
     cfg: ModelConfig
     ctx: ShardCtx
     device: torch.device
     init: Callable
+    loss: Callable
     prefill: Callable
     decode_step: Callable
     init_caches: Callable
@@ -102,6 +151,7 @@ def build(cfg: ModelConfig, ctx: ShardCtx | None = None, *,
 
     def _backbone(p, x, *, mode, pos, caches=None, valid_len=None,
                   enc_out=None):
+        """Train mode returns (x, aux), the others (x, aux, caches)."""
         kw = dict(mode=mode, pos=pos, caches=caches, valid_len=valid_len,
                   plain=plain_kernels)
         if cfg.family == "hybrid":
@@ -109,21 +159,55 @@ def build(cfg: ModelConfig, ctx: ShardCtx | None = None, *,
         if cfg.family == "encdec":
             x, caches = encdec_mod.decoder_forward(p["stack"], x, enc_out,
                                                    cfg, ctx, **kw)
-            return x, {}, caches
+            return (x, {}) if mode == "train" else (x, {}, caches)
         return tfm.forward_stack(p["stack"], x, cfg, ctx, **kw)
+
+    def _text_input(params, batch, mode):
+        """(embedded input, encoder output or None): a vlm's prefix
+        prepended, an encdec's frames encoded and sinusoidal positions
+        added to its tokens."""
+        x = _prefix(params, batch)
+        if cfg.family != "encdec":
+            return x, None
+        enc_out = encdec_mod.encode(params["stack"], batch["frames"], cfg,
+                                    ctx, plain=plain_kernels, mode=mode)
+        pe = sinusoidal_positions(x.shape[1], cfg.d_model, x.device)
+        return x + pe[None].to(dtype), enc_out
+
+    def loss(params, batch):
+        """Mean next-token cross-entropy over the text region, plus every
+        aux scalar. Returns (total, {"ce", "acc", aux..., "loss"}), f32."""
+        tokens = batch["tokens"]                     # (B,S)
+        B, S = tokens.shape
+        x, enc_out = _text_input(params, batch, "train")
+        Sx = x.shape[1]
+        pos = torch.arange(Sx, device=tokens.device)[None].expand(B, Sx)
+        x, aux = _backbone(params, x, mode="train", pos=pos, enc_out=enc_out)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        # next-token prediction on the text region
+        off = Sx - S                                  # vision prefix length
+        h = x[:, off:, :][:, :-1, :]
+        targets = tokens[:, 1:]
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=targets.device)
+        ce_sum, n_sum, acc_sum = chunked_ce(h, targets, mask,
+                                            params["embed"], cfg, ctx)
+        n = torch.clamp(n_sum, min=1.0)
+        ce = ce_sum / n
+        total = ce
+        metrics = {"ce": ce, "acc": acc_sum / n}
+        for k, v in aux.items():
+            total = total + v
+            metrics[k] = v
+        metrics["loss"] = total
+        return total, metrics
 
     def prefill(params, batch, max_seq: int):
         """Run the prompt; returns (last-position logits, caches padded to
         max_seq)."""
         tokens = batch["tokens"]
-        B, S = tokens.shape
-        x = _prefix(params, batch)
-        enc_out = None
-        if cfg.family == "encdec":
-            enc_out = encdec_mod.encode(params["stack"], batch["frames"],
-                                        cfg, ctx, plain=plain_kernels)
-            x = x + sinusoidal_positions(S, cfg.d_model,
-                                         x.device)[None].to(dtype)
+        B = tokens.shape[0]
+        x, enc_out = _text_input(params, batch, "prefill")
         Sx = x.shape[1]
         pos = torch.arange(Sx, device=tokens.device)[None].expand(B, Sx)
         x, _, caches = _backbone(params, x, mode="prefill", pos=pos,
@@ -169,5 +253,6 @@ def build(cfg: ModelConfig, ctx: ShardCtx | None = None, *,
             return encdec_mod.encdec_init_caches(cfg, batch, max_seq, device)
         return tfm.init_caches(cfg, batch, max_seq, device)
 
-    return Model(cfg=cfg, ctx=ctx, device=device, init=init, prefill=prefill,
-                 decode_step=decode_step, init_caches=init_caches)
+    return Model(cfg=cfg, ctx=ctx, device=device, init=init, loss=loss,
+                 prefill=prefill, decode_step=decode_step,
+                 init_caches=init_caches)

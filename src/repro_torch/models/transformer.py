@@ -10,14 +10,26 @@ layer's new K/V (or SSM state) into the caches IN PLACE; the reference
 threads updated copies through the scan carry. A MoE layer's aux scalars
 (``moe_lb``, ``moe_z``) are summed over the layers into the returned aux,
 as the reference's scan sums them.
+
+Train mode (``mode="train"``, ``Model.loss``) differentiates through
+autograd. It runs attention and the SSD chunk through their plain PyTorch
+versions on every device, as the reference trains through XLA
+(``flash_xla``, ``ssd_chunked``) and never through a Pallas kernel: no
+kernel has a backward, and their wrappers refuse a tensor that requires
+grad. Each stacked leaf is ``torch.unbind``-ed once a step
+(``unstack_layers``), and each period's body goes through ``remat_wrap``,
+the reference's activation-checkpoint policy.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
-from repro_torch.core.persistent import tree_map
+from repro_torch.core.persistent import tree_leaves, tree_map
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -123,9 +135,15 @@ def _ffn_sub(p, x, cfg, ctx, kind: str, group_mode: str):
 
 def layer_apply(p, x, cfg, ctx, kind: str, opts: dict, *, mode: str, pos,
                 cache=None, valid_len=None, plain: bool = False):
-    """Returns (x, aux, new_cache)."""
+    """Returns (x, aux, new_cache); train mode returns no cache and takes
+    the plain attention and SSD on every device."""
+    if mode == "train":
+        plain = True
     if kind == "ssm":
         h = rms_norm(x, p["ln"], cfg.norm_eps)
+        if mode == "train":
+            o = ssm_mod.ssm_block(p["ssm"], h, cfg, ctx, plain=True)
+            return x + o, {}, None
         if mode == "decode":
             o, state = ssm_mod.ssm_block_decode(p["ssm"], h, cache, cfg, ctx)
         else:
@@ -145,6 +163,28 @@ def layer_apply(p, x, cfg, ctx, kind: str, opts: dict, *, mode: str, pos,
 # Stacks
 # ---------------------------------------------------------------------------
 
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the outputs of matmuls without batch dims
+    (the projections' ``mm``), recompute the rest — the reference's
+    ``dots_with_no_batch_dims_saveable``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_wrap(body, cfg):
+    """Apply the configured activation-checkpoint policy to a layer body:
+    ``"full"`` recomputes everything in backward, ``"dots"`` keeps the
+    matmul outputs, ``"none"`` (or ``cfg.remat=False``) keeps all."""
+    if not cfg.remat or cfg.remat_policy == "none":
+        return body
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_matmuls)
+    return functools.partial(checkpoint, body, use_reentrant=False, **kw)
+
+
 def stack_params(b: Init, cfg):
     spec = period_spec(cfg)
     n = num_periods(cfg)
@@ -159,6 +199,19 @@ def _layer(tree, li: int):
     return tree[li]
 
 
+def unstack_layers(tree, n: int) -> list:
+    """The ``n`` per-layer trees of a stacked tree, one ``torch.unbind`` a
+    leaf: under autograd, backward stacks the layers' gradients once
+    (``tree[li]`` for each layer would write a full-stack-sized gradient
+    per layer)."""
+    cols = [torch.unbind(t) for t in tree_leaves(tree)]
+    out = []
+    for li in range(n):
+        it = iter([c[li] for c in cols])
+        out.append(tree_map(lambda _: next(it), tree))
+    return out
+
+
 def stack_layers(trees: list):
     """Per-layer trees stacked leaf by leaf along a new leading axis."""
     return tree_map(lambda *ls: torch.stack(ls), *trees)
@@ -168,6 +221,7 @@ def forward_stack(params, x, cfg, ctx, *, mode: str, pos,
                   caches=None, valid_len=None, plain: bool = False):
     """Run the layer stack.
 
+    mode='train': returns (x, aux);
     mode='prefill': returns (x, aux, caches) — caches[f'blk{i}'] stacked
     over layers: attention K/V (P, B, S, Hkv, D), SSM state leaves
     (P, B, ...);
@@ -175,8 +229,8 @@ def forward_stack(params, x, cfg, ctx, *, mode: str, pos,
     (x, aux, caches).
     """
     spec = period_spec(cfg)
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mode={mode!r} waits for the training slice")
+    if mode == "train":
+        return _train_stack(params, x, cfg, ctx, spec, pos)
     per_layer: dict[str, list] = {f"blk{i}": [] for i in range(len(spec))}
     aux_acc: dict = {}
     for li in range(num_periods(cfg)):
@@ -186,13 +240,37 @@ def forward_stack(params, x, cfg, ctx, *, mode: str, pos,
             x, aux, nc = layer_apply(
                 _layer(params[key], li), x, cfg, ctx, kind, opts, mode=mode,
                 pos=pos, cache=cache_i, valid_len=valid_len, plain=plain)
-            for k, v in aux.items():
-                aux_acc[k] = aux_acc.get(k, 0.0) + v
+            _merge_aux(aux_acc, aux)
             per_layer[key].append(nc)
     if mode == "decode":
         return x, aux_acc, caches
     new_caches = {key: stack_layers(cs) for key, cs in per_layer.items()}
     return x, aux_acc, new_caches
+
+
+def _merge_aux(acc: dict, aux: dict) -> None:
+    for k, v in aux.items():
+        acc[k] = acc.get(k, 0.0) + v
+
+
+def _train_stack(params, x, cfg, ctx, spec, pos):
+    n = num_periods(cfg)
+    stacks = [unstack_layers(params[f"blk{i}"], n) for i in range(len(spec))]
+
+    def period(x, *lps):
+        aux: dict = {}
+        for (kind, opts), lp in zip(spec, lps):
+            x, a, _ = layer_apply(lp, x, cfg, ctx, kind, opts, mode="train",
+                                  pos=pos)
+            _merge_aux(aux, a)
+        return x, aux
+
+    body = remat_wrap(period, cfg)
+    aux_acc: dict = {}
+    for li in range(n):
+        x, aux = body(x, *(layers[li] for layers in stacks))
+        _merge_aux(aux_acc, aux)
+    return x, aux_acc
 
 
 # ---------------------------------------------------------------------------

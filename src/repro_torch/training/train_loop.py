@@ -1,0 +1,86 @@
+"""Training step factory — the port of ``repro.training.train_loop``:
+value and grad of ``Model.loss`` through autograd, microbatch gradient
+accumulation, then AdamW (fp32 or 8-bit).
+
+``make_train_step`` returns a (params, opt_state, batch) -> (params,
+opt_state, metrics) function. With one microbatch the gradients keep the
+parameters' dtype, as JAX's do; with ``accum_steps > 1`` they are summed
+in ``cfg.accum_dtype`` and scaled by 1/accum, and the metrics averaged.
+``donate=True`` lets the update write into the given state (the
+reference's launcher donates it to its jitted step); the returned values
+are the same. The sharded state specs (``state_axes``,
+``state_shardings``, ``abstract_state``) wait for the distribution slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.persistent import tree_leaves, tree_map
+from repro_torch.optim.optimizer import (AdamWConfig, adamw_init,
+                                         adamw_update, make_optimizer)
+
+
+def _value_and_grad(loss_fn, params, batch):
+    """(gradients shaped as ``params``, metrics detached)."""
+    leaves = tree_leaves(params)
+    with torch.enable_grad():
+        req = [p.detach().requires_grad_(True) for p in leaves]
+        it = iter(req)
+        loss, metrics = loss_fn(tree_map(lambda _: next(it), params), batch)
+        grads = torch.autograd.grad(loss, req, allow_unused=True)
+    it = iter([torch.zeros_like(p) if g is None else g
+               for p, g in zip(leaves, grads)])
+    return (tree_map(lambda _: next(it), params),
+            {k: v.detach() for k, v in metrics.items()})
+
+
+def make_train_step(model, opt_cfg: AdamWConfig, accum_steps: int = 1, *,
+                    donate: bool = False):
+    """model: a ``repro_torch.models.Model``. Batch leaves are
+    (global_batch, ...)."""
+    loss_fn = model.loss
+    accum_dtype = getattr(torch, model.cfg.accum_dtype)
+
+    def compute_grads(params, batch):
+        if accum_steps <= 1:
+            return _value_and_grad(loss_fn, params, batch)
+        mbs = {k: x.reshape((accum_steps, x.shape[0] // accum_steps)
+                            + tuple(x.shape[1:])) for k, x in batch.items()}
+        g_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=accum_dtype,
+                                               device=p.device), params)
+        m_acc = None
+        for i in range(accum_steps):
+            g, metrics = _value_and_grad(loss_fn, params,
+                                         {k: x[i] for k, x in mbs.items()})
+            g_acc = tree_map(lambda a, b: a + b.to(a.dtype), g_acc, g)
+            m_acc = metrics if m_acc is None else \
+                {k: m_acc[k] + v for k, v in metrics.items()}
+        inv = 1.0 / accum_steps
+        return (tree_map(lambda g: g * inv, g_acc),
+                {k: v * inv for k, v in m_acc.items()})
+
+    def train_step(params, opt_state, batch):
+        grads, metrics = compute_grads(params, batch)
+        with torch.no_grad():
+            params, opt_state, info = adamw_update(opt_cfg, params, grads,
+                                                   opt_state, donate=donate)
+        metrics = dict(metrics)
+        metrics.update(info)
+        return params, opt_state, metrics
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# State construction
+# ---------------------------------------------------------------------------
+
+def opt_config_for(cfg, lr=3e-4, **kw) -> AdamWConfig:
+    return make_optimizer(cfg.optimizer, lr=lr, **kw)
+
+
+def init_state(model, opt_cfg: AdamWConfig, seed: int):
+    """(params drawn from ``seed`` on the model's device, optimizer
+    state)."""
+    params = model.init(seed)
+    return params, adamw_init(opt_cfg, params)

@@ -76,8 +76,8 @@ def test_params_carry_across(pair):
     """The converted tree keeps the reference's layout: one shared block,
     ``groups`` as a list of ``every`` layer trees stacked over groups, and
     a ``tail`` stack where the layer count leaves one; the port's own init
-    builds the same tree."""
-    cfg, _, j_params, model, params = pair
+    builds the same tree; train mode runs that tree as the reference's."""
+    cfg, j_model, j_params, model, params = pair
     assert_trees_close(params, jax.tree.map(np.asarray, j_params), "params")
     stack = params["stack"]
     assert isinstance(stack["groups"], list) and len(stack["groups"]) == 2
@@ -86,10 +86,21 @@ def test_params_carry_across(pair):
     own = model.init(0)
     assert {k: v.shape for k, v in flat(own).items()} == \
         {k: v.shape for k, v in flat(params).items()}
-    x = torch.zeros((1, 3, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="training"):
-        hybrid_forward(params["stack"], x, cfg, ShardCtx.single(),
-                       mode="train", pos=torch.zeros((1, 3)))
+    # train mode (slice 11) runs the same stack: (x, aux) as the reference's
+    from repro.models.hybrid import hybrid_forward as j_hybrid_forward
+    x = np.random.default_rng(4).normal(size=(1, 3, cfg.d_model)).astype(
+        np.float32)
+    pos = np.arange(3, dtype=np.int32)[None]
+    out, aux = hybrid_forward(params["stack"], torch.from_numpy(x), cfg,
+                              ShardCtx.single(), mode="train",
+                              pos=torch.from_numpy(pos))
+    j_out, j_aux = j_hybrid_forward(j_params["stack"], jnp.asarray(x),
+                                    j_model.cfg, JShardCtx.single(),
+                                    mode="train",
+                                    pos=jnp.asarray(pos))
+    assert aux == {} and j_aux == {}
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_out), atol=ATOL,
+                               rtol=0)
 
 
 def test_prefill_and_decode_match_reference(pair):

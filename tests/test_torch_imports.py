@@ -47,7 +47,10 @@ def test_port_imports_neither_jax_nor_reference():
               "models.ssm", "configs.mamba2_780m", "models.hybrid",
               "models.encdec", "configs.zamba2_7b", "configs.whisper_tiny",
               "models.moe", "configs.llama4_maverick_400b_a17b",
-              "configs.grok1_314b", "configs.internvl2_76b"):
+              "configs.grok1_314b", "configs.internvl2_76b",
+              "optim.optimizer", "data.pipeline", "checkpoint.checkpoint",
+              "training.train_loop", "distributed.fault_tolerance",
+              "launch.train"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -66,6 +69,50 @@ def _upper_constants(mod):
     return {k: v for k, v in vars(mod).items()
             if k.isupper() and not k.startswith("_")
             and isinstance(v, (int, float, str, tuple))}
+
+
+def test_training_modules_import_no_ml_dtypes():
+    """The GPU host has no JAX, and nothing records ``ml_dtypes`` there:
+    the training path (checkpoints' bf16 included) goes through torch."""
+    mods = [m for m in _modules() if m.split(".")[1] in (
+        "optim", "data", "checkpoint", "training", "launch", "models",
+        "distributed")]
+    assert "repro_torch.launch.train" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k == 'ml_dtypes' or "
+        "k.startswith('ml_dtypes.') or k == 'jax' or k.startswith('jax.'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_optimizer_constants_equal_reference():
+    import dataclasses
+    import repro.optim.optimizer as j_opt
+    import repro_torch.optim.optimizer as t_opt
+    assert (t_opt.QBLOCK, t_opt.QALIGN) == (j_opt.QBLOCK, j_opt.QALIGN)
+    assert dataclasses.asdict(t_opt.AdamWConfig()) == \
+        dataclasses.asdict(j_opt.AdamWConfig())
+    assert [f.name for f in dataclasses.fields(t_opt.AdamWConfig)] == \
+        [f.name for f in dataclasses.fields(j_opt.AdamWConfig)]
+
+
+def test_train_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the refusal path is not reachable")
+    from repro_torch.data import DataConfig, ShardedLoader, SyntheticLM
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "mamba2-780m", "--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedLoader(SyntheticLM(11), DataConfig(2, 8))
 
 
 @pytest.mark.parametrize("ref,port", [
@@ -168,7 +215,10 @@ NOT_PORTED = {"persistent_drain_pallas",      # the Pallas TPU launch
               # models.layers.Init draws the same scales from a
               # torch.Generator; its logical-axes mode waits for the
               # distribution slice
-              "Builder"}
+              "Builder",
+              # the sharded state specs: the distribution slice
+              "adamw_state_axes", "state_axes", "state_shardings",
+              "abstract_state"}
 
 
 @pytest.mark.parametrize("name", [
@@ -176,7 +226,8 @@ NOT_PORTED = {"persistent_drain_pallas",      # the Pallas TPU launch
     "repro.kernels.decode_attention", "repro.kernels.flash_attention",
     "repro.kernels.persistent", "repro.kernels.ssd_scan",
     "repro.models.hybrid", "repro.models.encdec", "repro.models.layers",
-    "repro.models.moe",
+    "repro.models.moe", "repro.optim", "repro.optim.optimizer", "repro.data",
+    "repro.checkpoint", "repro.training", "repro.distributed.fault_tolerance",
 ])
 def test_reference_public_names_importable_from_port(name):
     import importlib

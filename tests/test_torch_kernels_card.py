@@ -328,6 +328,47 @@ def test_decode_launcher_raises_when_the_cluster_is_refused(cuda,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
+                                  "ssd_chunk"])
+def test_kernel_wrappers_refuse_grad_on_card(cuda, name):
+    """No kernel has a backward: on the card each of K4/K5/K6 raises for
+    an input that requires grad with grad mode on (its output would carry
+    no gradient), launching nothing; under ``torch.no_grad()`` it launches
+    and agrees with its plain version."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+    if name == "flash_attention":
+        fn, plain, tol = flash_attention, flash_attention_plain, 1e-4
+        args = (randn(1, 64, 4, 64), randn(1, 64, 2, 64), randn(1, 64, 2, 64))
+    elif name == "decode_attention":
+        fn, plain, tol = decode_attention, decode_attention_plain, 1e-4
+        args = (randn(2, 1, 4, 64), randn(2, 128, 2, 64),
+                randn(2, 128, 2, 64),
+                torch.tensor([17, 128], dtype=torch.int32, device=cuda))
+    else:
+        fn, plain, tol = ssd_chunk, ssd_chunk_plain, 1e-4
+        dt = torch.rand((1, 2, 32, 4), generator=g, device=cuda) * 0.1
+        args = (randn(1, 2, 32, 4, 16), dt, torch.cumsum(-dt, dim=2),
+                randn(1, 2, 32, 16), randn(1, 2, 32, 16))
+    req = tuple(a.clone().requires_grad_(True) if a.is_floating_point()
+                else a for a in args)
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(*req)
+    assert fn.launches == before
+    with torch.no_grad():
+        got = fn(*req)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = plain(*args)
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
 def test_kernel_wrappers_reject_what_they_cannot_take(cuda):
     q = torch.zeros((1, 8, 4, 48), device=cuda)            # D=48
     with pytest.raises(ValueError, match="head dim"):
