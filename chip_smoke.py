@@ -122,6 +122,24 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    optimizer-byte floors by arithmetic; one reduced llama3-8b train step
    x3 on the card and on the CPU from the same parameters and batches
    (f32, TF32 off): loss within 1e-5 relative, parameters within 1e-4;
+4i. the mesh: K4's shard mode (``decode_attention_partial``) on 2, 4 and 16
+   sequence shards of llama3-8b's B=4 S=4096 cache (valid lengths 3, 1000,
+   2049, 4096: empty shards) and of gemma2-2b's B=1 S=4609 D=256 cache
+   (window 4096 across shards, softcap 50), and at D=112 and D=32: each
+   shard's (o, lse) against the plain partial, their merge on the card
+   against the unsharded K4 and the plain version (bf16 2e-2, f32 1e-4),
+   each shard call's device time, the merge's, and the plain partial's,
+   SDPA's over the shard's live keys and the bound at the longest live
+   shard; llama3-8b at full width (32 layers) on a (1, 1) ('data',
+   'model') DeviceMesh over a one-rank NCCL group: a 2048-token prefill of
+   4 prompts (K5 32 launches, each on the rank's query heads) and 8 decode
+   steps at 4 slots over a 4096-position cache (K4's shard mode 32
+   launches a step, the unsharded K4 none), tokens equal to the
+   ShardCtx.single() path's and logits within 0.25 of the plain path's,
+   each path's decode step time in this call and a profiled step's
+   device-busy share; then the dry run on this host (llama3-8b's inference
+   cells on the 16x16 mesh, mamba2-780m's long_500k on both meshes: fake
+   tensors, a fake 512-rank group) and its roofline rows;
 5. tile kernels: the drain megakernel (K1), its flight-recorder variant
    (K2) and the legacy executor (K3) against their plain versions at
    C = 132 clusters (one worker per SM), Q = 64 rows, nbuf = 8 tiles, on a
@@ -190,11 +208,13 @@ from repro_torch.core.sched import EdfPolicy  # noqa: E402
 from repro_torch.core.telemetry import (EV_CHUNK_RETIRE,  # noqa: E402
                                         EV_TRIGGER, TraceCollector)
 from repro_torch.core.telemetry.events import now_us  # noqa: E402
-from repro_torch.configs import get_config, list_configs  # noqa: E402
+from repro_torch.configs import SHAPES, get_config, list_configs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import persistent as PK  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention, decode_attention_plain)
+    decode_attention, decode_attention_partial,
+    decode_attention_partial_plain, decode_attention_plain,
+    merge_decode_partials)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
@@ -221,6 +241,10 @@ HBM_BYTES_PER_S = 3.35e12
 N_SMS = 132
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
 ATOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}   # summation order
+# K4 shard partials' lse: f32 on both sides from the same inputs in every
+# dtype, so f32 summation order (one key lost at a shard boundary moves it
+# by about 1 / live keys)
+LSE_ATOL = 1e-4
 # softcap rows: q times this, so the scaled scores (about N(0, 20^2)) reach
 # the cap of 50; dropping the softcap must then move the plain output by
 # more than SOFTCAP_WITNESS tolerances
@@ -285,10 +309,15 @@ TILE_KERNELS = ("persistent_drain", "persistent_drain_prof",
 def zero_launches() -> None:
     for spec in KERNELS.values():
         spec["wrapper"].launches = 0
+    decode_attention_partial.launches = 0
 
 
 def read_launches() -> dict:
-    return {n: s["wrapper"].launches for n, s in KERNELS.items()}
+    """Each kernel's launches; K4's shard mode counted apart as
+    ``decode_attention_partial``."""
+    out = {n: s["wrapper"].launches for n, s in KERNELS.items()}
+    out["decode_attention_partial"] = decode_attention_partial.launches
+    return out
 
 
 def log(msg: str) -> None:
@@ -392,7 +421,9 @@ def softcap_library_times(rows: list) -> None:
     ``flex_attention`` with a ``softcap * tanh(s / softcap)`` score_mod,
     the row's mask as a block mask and GQA, compiled once a row in this
     process (no compile workers) and warmed before it is timed; held to
-    the plain version at the row's tolerance. Run after every
+    the plain version at the row's tolerance (a row whose plain version
+    is a shard partial (o, lse) asks flex_attention for its lse too and
+    holds both, lse at the row's ``lse_tol``). Run after every
     ``torch.profiler`` pass of the smoke: once it has compiled, the
     profiler's passes drop device events. The port never calls it."""
     from torch.nn.attention.flex_attention import (create_block_mask,
@@ -410,10 +441,23 @@ def softcap_library_times(rows: list) -> None:
         block_mask = create_block_mask(mask_mod, B, None, Lq, Lkv,
                                        device="cuda")
 
+        with_lse = isinstance(want, tuple)
+
         def call():
             return flex(qt, kt, vt, score_mod=score_mod,
-                        block_mask=block_mask, enable_gqa=True)
-        got = call().transpose(1, 2)
+                        block_mask=block_mask, enable_gqa=True,
+                        return_lse=with_lse)
+        if with_lse:
+            got, lse = call()
+            lse_err = float((lse[:, :, 0].float() - want[1]).abs().max())
+            r["library_lse_err"] = lse_err
+            if not lse_err <= r["lse_tol"]:
+                raise SystemExit(f"flex_attention's lse at {r['case']}: "
+                                 f"{lse_err:.3e} > {r['lse_tol']:.0e}")
+            want = want[0]
+        else:
+            got = call()
+        got = got.transpose(1, 2)
         torch.cuda.synchronize()
         r["library_err"] = float((got.float() - want.float()).abs().max())
         r["library_ms"] = time_ms(call)
@@ -2038,6 +2082,340 @@ def train_phase(smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4i: the mesh — K4's shard mode, the sharded model, the dry run
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 8        # meshed decode steps at 4 slots
+DECODE_PEAK_MARGIN = 0.02   # dry-run decode peak over arguments (1.0002)
+MESH_PROMPT = 2048
+MESH_CACHE = 4096
+
+
+def _shard_bounds(S: int, n: int) -> list:
+    """n contiguous shards of S positions (the last ones shorter when n
+    does not divide S): [(off, S_loc), ...]."""
+    step = -(-S // n)
+    return [(o, min(step, S - o)) for o in range(0, S, step)]
+
+
+def shard_case(name, B, S, valid, n, dtype, gen, Hq=32, Hkv=8, D=128,
+               window=0, softcap=0.0) -> dict:
+    """K4's shard mode on n sequence shards of one cache: each shard's (o,
+    lse) against the plain partial, their merge on the card against the
+    unsharded K4 and the plain version; each shard call's device time, the
+    merge's, and at the longest live shard the plain partial's, SDPA over
+    the shard's live keys, and the bound."""
+    q = _softcap_q(_randn((B, 1, Hq, D), dtype, gen), softcap)
+    k = _randn((B, S, Hkv, D), dtype, gen)
+    v = _randn((B, S, Hkv, D), dtype, gen)
+    vl = torch.tensor(valid, dtype=torch.int32, device="cuda")
+    kw = dict(attn_softcap=softcap, window=window)
+    tol = ATOL[dtype]
+    shards = [(o, L, k[:, o:o + L].contiguous(), v[:, o:o + L].contiguous())
+              for o, L in _shard_bounds(S, n)]
+    before = decode_attention_partial.launches
+    parts, wants, err, lse_err, empty = [], [], 0.0, 0.0, 0
+    for o, L, ks, vs in shards:
+        got = decode_attention_partial(q, ks, vs, vl, off=o, seq_len=S, **kw)
+        want = decode_attention_partial_plain(q, ks, vs, vl, off=o,
+                                              seq_len=S, **kw)
+        if not torch.equal(torch.isinf(got[1]), torch.isinf(want[1])):
+            raise SystemExit(f"shard {name} n={n} off={o}: empty rows differ")
+        live = torch.isfinite(want[1])
+        empty += int((~live).all(dim=1).sum())
+        err = max(err, float((got[0].float() - want[0].float()).abs().max()))
+        if live.any():
+            lse_err = max(lse_err,
+                          float((got[1][live] - want[1][live]).abs().max()))
+        parts.append(got)
+        wants.append(want)
+    launched = decode_attention_partial.launches - before
+    merged = merge_decode_partials([p[0] for p in parts],
+                                   [p[1] for p in parts])
+    plain = decode_attention_plain(q, k, v, vl, **kw)
+    whole = decode_attention(q, k, v, vl, **kw)
+    torch.cuda.synchronize()
+    err_plain = float((merged.float() - plain.float()).abs().max())
+    err_whole = float((merged.float() - whole.float()).abs().max())
+    if max(err, err_plain, err_whole) > tol or lse_err > LSE_ATOL or \
+            launched != len(shards):
+        raise SystemExit(
+            f"K4 shard mode {name} n={n}: partial err {err:.3e}, lse err "
+            f"{lse_err:.3e} (tol {LSE_ATOL}), merged vs plain "
+            f"{err_plain:.3e}, vs unsharded K4 {err_whole:.3e} (tol {tol}); "
+            f"{launched} launches for {len(shards)} shards")
+    shard_ms = [time_ms(lambda o=o, ks=ks, vs=vs: decode_attention_partial(
+        q, ks, vs, vl, off=o, seq_len=S, **kw)) for o, _, ks, vs in shards]
+    merge_ms = time_ms(lambda: merge_decode_partials(
+        [p[0] for p in parts], [p[1] for p in parts]))
+    pos = torch.arange(S, device="cuda")[None, :]
+    live = pos < vl[:, None]
+    if window:
+        live &= pos >= (vl[:, None] - window)
+    i = max(range(len(shards)),
+            key=lambda j: int(live[:, shards[j][0]:shards[j][0]
+                                   + shards[j][1]].sum()))
+    o, L, ks, vs = shards[i]
+    rows = float(live[:, o:o + L].sum())
+    plain_ms = time_ms(lambda: decode_attention_partial_plain(
+        q, ks, vs, vl, off=o, seq_len=S, **kw), iters=5)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, ks, vs))
+    mask = live[:, None, None, o:o + L]
+    sdpa_ms = time_ms(lambda: _sdpa_gqa(qt, kt, vt, attn_mask=mask))
+    flex = {}
+    if softcap:
+        # the same function in one library call (softcap_library_times):
+        # flex_attention over the shard's live range, with its lse
+        def mask_mod(b, h, q_idx, kv_idx):
+            g = kv_idx + o
+            live = g < vl[b]
+            return live & (g >= vl[b] - window) if window else live
+        flex["flex"] = (qt, kt, vt, softcap, mask_mod, B, 1, L, wants[i])
+    nbytes = (2 * q.numel() + 2 * rows * Hkv * D) * q.element_size() + \
+        B * Hq * 4 + vl.numel() * 4
+    row = dict(kernel="decode_attention_partial", case=f"{name}_n{n}",
+               shards=len(shards), empty_shard_rows=empty,
+               max_abs_err=max(err, err_plain, err_whole),
+               lse_err=lse_err, lse_tol=LSE_ATOL,
+               err_vs_plain=err_plain, err_vs_unsharded=err_whole,
+               scale=float(plain.float().abs().max()), tol=tol,
+               shard_ms=shard_ms, merge_ms=merge_ms, ms=shard_ms[i],
+               timed_shard=i, plain_ms=plain_ms,
+               library_ms=None if softcap else sdpa_ms, library_err=None,
+               library_lse_err=None, sdpa_without_softcap_ms=sdpa_ms if softcap else None,
+               **flex, **bound(nbytes, 4.0 * D * Hq * rows, dtype))
+    log(f"K4 shard {row['case']}: {len(shards)} shards ({empty} empty "
+        f"(seq, head) rows) err {row['max_abs_err']:.3e} lse err "
+        f"{lse_err:.3e} (tol {LSE_ATOL}) (vs plain "
+        f"{err_plain:.3e}, vs unsharded {err_whole:.3e}, |want| max "
+        f"{row['scale']:.3f}, tol {tol}) shard ms "
+        f"{[round(t, 5) for t in shard_ms]} merge {merge_ms:.5f} ms; shard "
+        f"{i}: plain {plain_ms:.4f} sdpa {sdpa_ms:.4f} bound "
+        f"{row['bound_ms']:.5f} ({row['bound_by']}); launches {launched}")
+    return row
+
+
+def shard_mode_checks() -> dict:
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = []
+    for n in (2, 4, 16):
+        rows.append(shard_case("llama3_b4_s4096", 4, 4096,
+                               [3, 1000, 2049, 4096], n, bf16, gen))
+        rows.append(shard_case(
+            "gemma2_b1_s4609", 1, 4609, [4609], n, bf16, gen, Hq=8, Hkv=4,
+            D=256, window=GEMMA_WINDOW, softcap=GEMMA_SOFTCAP))
+    rows.append(shard_case("d112_b2_s1024", 2, 1024, [1024, 300], 4, bf16,
+                           gen, Hq=32, Hkv=32, D=112, window=500))
+    rows.append(shard_case("d32_b2_s512_f32", 2, 512, [512, 77], 4, f32,
+                           gen, Hq=4, Hkv=2, D=32))
+    rows.append(shard_case("d32_b2_s512", 2, 512, [512, 77], 4, bf16, gen,
+                           Hq=4, Hkv=2, D=32))
+    return {r["case"]: r for r in rows}
+
+
+def _step_ms(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def meshed_model_run() -> dict:
+    """llama3-8b at full width (32 layers, seed 0) on a (1, 1) ('data',
+    'model') DeviceMesh over a one-rank NCCL group: a 2048-token prefill of
+    4 prompts (K5 once a layer, on the rank's heads) and 8 decode steps at
+    4 slots over a 4096-position cache (K4's shard mode once a layer a
+    step), against the ShardCtx.single() path (tokens equal) and the plain
+    path (logits within LOGITS_ATOL); each path's decode step time in this
+    call, and one profiled step's device-busy share on each."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.distributed.sharding import ShardCtx
+    from repro_torch.launch.mesh import make_host_mesh
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.HashStore(),
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_host_mesh()
+        cfg = get_config("llama3-8b")
+        single = build(cfg, device="cuda")
+        plain = build(cfg, device="cuda", plain_kernels=True)
+        pctx = ShardCtx.for_mesh(mesh, "prefill")
+        dctx = ShardCtx.for_mesh(mesh, "decode")
+        pm = build(cfg, pctx, device="cuda")
+        dm = build(cfg, dctx, device="cuda")
+        params = single.init(0)
+        dparams = pctx.distribute(params, pm.param_axes())
+        rng = np.random.default_rng(0)
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (4, MESH_PROMPT)).astype(np.int32)).cuda()
+        runs = {}
+        for label, m, p in (("single", single, params),
+                            ("plain", plain, params)):
+            logits, caches = m.prefill(p, {"tokens": tokens}, MESH_CACHE)
+            runs[label] = dict(model=m, params=p, caches=caches,
+                               logits=[logits[:, -1].float()])
+        zero_launches()
+        batch = pctx.distribute({"tokens": tokens},
+                                {"tokens": pm.input_specs(
+                                    SHAPES["prefill_32k"])[1]["tokens"]})
+        t_pre = time.perf_counter()
+        logits, caches = pm.prefill(dparams, batch, MESH_CACHE)
+        caches = dctx.constrain_tree(caches, dm.cache_axes())
+        torch.cuda.synchronize()
+        t_pre = (time.perf_counter() - t_pre) * 1e3
+        pre_launches = read_launches()
+        runs["mesh"] = dict(model=dm, params=dparams, caches=caches,
+                            logits=[logits.full_tensor()[:, -1].float()])
+        if pre_launches["flash_attention"] != cfg.num_layers:
+            raise SystemExit(f"meshed prefill: K5 launched "
+                             f"{pre_launches['flash_attention']} times, want "
+                             f"{cfg.num_layers}")
+        toks = {k: [torch.argmax(r["logits"][0], -1)] for k, r in runs.items()}
+        times = {k: [] for k in runs}
+        per_step = []
+        for step in range(MESH_STEPS):
+            pos = torch.full((4,), MESH_PROMPT + step, dtype=torch.int32,
+                             device="cuda")
+            nxt = toks["single"][-1].to(torch.int32)[:, None]
+            for label, r in runs.items():
+                zero_launches()
+                out = {}
+
+                def go(r=r, out=out):
+                    out["l"], r["caches"] = r["model"].decode_step(
+                        r["params"], r["caches"], nxt, pos)
+                times[label].append(_step_ms(go))
+                lg = out["l"]
+                lg = lg.full_tensor() if label == "mesh" else lg
+                r["logits"].append(lg[:, -1].float())
+                toks[label].append(torch.argmax(lg[:, -1], -1))
+                if label == "mesh":
+                    per_step.append(read_launches())
+        for i, ln in enumerate(per_step):
+            if ln["decode_attention_partial"] != cfg.num_layers or \
+                    ln["decode_attention"]:
+                raise SystemExit(f"meshed decode step {i}: K4 shard mode "
+                                 f"{ln['decode_attention_partial']} launches "
+                                 f"(want {cfg.num_layers}), unsharded K4 "
+                                 f"{ln['decode_attention']} (want 0)")
+        same = all(bool(torch.equal(a, b))
+                   for a, b in zip(toks["mesh"], toks["single"]))
+        err_plain = max(float((a - b).abs().max()) for a, b in
+                        zip(runs["mesh"]["logits"], runs["plain"]["logits"]))
+        err_single = max(float((a - b).abs().max()) for a, b in
+                         zip(runs["mesh"]["logits"], runs["single"]["logits"]))
+        if not same or not math.isfinite(err_plain) or \
+                err_plain > LOGITS_ATOL:
+            raise SystemExit(f"meshed llama3-8b: tokens equal {same}, logits "
+                             f"vs plain {err_plain:.3e} (tol {LOGITS_ATOL})")
+        busy = {}
+        for label in ("single", "mesh"):
+            r = runs[label]
+            pos = torch.full((4,), MESH_PROMPT + MESH_STEPS,
+                             dtype=torch.int32, device="cuda")
+            nxt = toks["single"][-1].to(torch.int32)[:, None]
+            r["model"].decode_step(r["params"], r["caches"], nxt, pos)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                r["model"].decode_step(r["params"], r["caches"], nxt, pos)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            busy_ms, share = busy_share(prof, "")
+            busy[label] = dict(busy_ms=busy_ms, wall_ms=wall,
+                               share=busy_ms / wall)
+        med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+        log(f"mesh llama3-8b (32 layers, mesh {tuple(mesh.shape)}): prefill "
+            f"{MESH_PROMPT} x4 {t_pre:.1f} ms, K5 "
+            f"{pre_launches['flash_attention']}; decode K4 shard mode "
+            f"{[ln['decode_attention_partial'] for ln in per_step]} a step; "
+            f"tokens equal single {same}; logits vs plain {err_plain:.4f} "
+            f"vs single {err_single:.3e} (tol {LOGITS_ATOL})")
+        log(f"mesh decode step ms (median of {MESH_STEPS}): single "
+            f"{med['single']:.2f} mesh {med['mesh']:.2f} plain "
+            f"{med['plain']:.2f}; all single "
+            f"{[round(t, 2) for t in times['single']]} mesh "
+            f"{[round(t, 2) for t in times['mesh']]}; profiled step busy "
+            + ", ".join(f"{k} {v['busy_ms']:.2f}/{v['wall_ms']:.2f} ms "
+                        f"({v['share']:.3f})" for k, v in busy.items()))
+        out = dict(prefill_ms=t_pre, prefill_launches=pre_launches,
+                   step_launches=per_step, tokens_equal=same,
+                   err_plain=err_plain, err_single=err_single,
+                   step_ms=times, median_ms=med, busy=busy)
+        del runs, params, dparams, caches, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def dryrun_cells() -> dict:
+    """The dry run on this host (fake tensors, a fake 512-rank group: host
+    work): llama3-8b's inference cells on the pod mesh and mamba2-780m's
+    long_500k on both meshes, then their roofline rows."""
+    out_dir = ROOT / "build" / "chip_smoke" / "dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    recs = {}
+    for args in (["--arch", "llama3-8b", "--mesh", "pod"],
+                 ["--arch", "mamba2-780m", "--shape", "long_500k", "--mesh",
+                  "both"]):
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+             "--out", str(out_dir)], env=env, capture_output=True,
+            text=True, timeout=300)
+        for line in res.stdout.splitlines():
+            log(line)
+        if res.returncode:
+            raise SystemExit(f"dry run {args} failed: {res.stderr[-2000:]}")
+        log(f"dry run {' '.join(args)}: {time.perf_counter() - t0:.1f}s")
+    for path in sorted(out_dir.glob("*.json")):
+        rec = json.loads(path.read_text())
+        recs[path.stem] = {k: rec.get(k) for k in (
+            "status", "memory", "collectives", "timing", "device")}
+        if rec["status"] == "OK":
+            recs[path.stem]["flops"] = rec["cost"]["flops"]
+            recs[path.stem]["bytes_accessed"] = rec["cost"]["bytes_accessed"]
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.roofline", "--results",
+         str(out_dir)], env=env, capture_output=True, text=True, timeout=120)
+    if res.returncode:
+        raise SystemExit(f"roofline failed: {res.stderr[-2000:]}")
+    for line in res.stdout.splitlines():
+        if line.strip():
+            log(f"roofline {line}")
+    bad = [k for k, r in recs.items() if r["status"] == "FAIL"]
+    if bad or not any(r["status"] == "OK" for r in recs.values()):
+        raise SystemExit(f"dry run cells failed: {bad}")
+    # a decode cell holds little beside its arguments: a peak above them by
+    # more than DECODE_PEAK_MARGIN is DTensor's global-shape propagation
+    # tallied as a rank's work (it read 75x on this host once)
+    over = {k: r["memory"]["peak_bytes_per_device"]
+            / r["memory"]["argument_bytes"] for k, r in recs.items()
+            if r["status"] == "OK" and ("decode_32k" in k or "long_500k" in k)}
+    log(f"dry run decode cells' peak / arguments: {over}")
+    if not over or max(over.values()) > 1 + DECODE_PEAK_MARGIN:
+        raise SystemExit(f"dry run decode peaks over their arguments beyond "
+                         f"{DECODE_PEAK_MARGIN}: {over}")
+    return recs
+
+
+def mesh_phase() -> dict:
+    t0 = time.perf_counter()
+    out = dict(shards=shard_mode_checks(), model=meshed_model_run(),
+               dryrun=dryrun_cells())
+    log(f"mesh phase {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: tile kernels vs plain at 132 clusters
 # ---------------------------------------------------------------------------
 
@@ -2645,6 +3023,7 @@ def main(argv=None) -> int:
     moe_vlm = moe_vlm_phase(chunked_args)
     smoke = smoke_phase()
     training = train_phase(smi)
+    mesh = mesh_phase()
     new_runs = {k: v for phase in (hybrid, encdec, moe_vlm)
                 for k, v in phase.items() if k.endswith("_prefill")}
     new_runs.update({f"smoke_{arch.replace('-', '_')}": launched
@@ -2661,7 +3040,8 @@ def main(argv=None) -> int:
     if missing:
         raise SystemExit(f"tile path never launched: {missing}")
     softcap_library_times(checks["cases"] + [
-        r for r in mv_rows.values() if r["kernel"] in ATTENTION])
+        r for r in mv_rows.values() if r["kernel"] in ATTENTION] +
+        list(mesh["shards"].values()))
 
     kernels = []
     for name, spec in KERNELS.items():
@@ -2690,12 +3070,27 @@ def main(argv=None) -> int:
             if name == "decode_attention":
                 extra["device_kernels_per_call"] = \
                     row["device_kernels_per_call"]
+                # K4's shard mode: its launches on the meshed decode steps,
+                # and each shard case's times beside its bound
+                extra["launches_mesh_decode_shard_mode"] = [
+                    ln["decode_attention_partial"]
+                    for ln in mesh["model"]["step_launches"]]
+                extra["shard_mode"] = {
+                    c: {k: r[k] for k in (
+                        "ms", "shard_ms", "merge_ms", "plain_ms",
+                        "bound_ms", "bound_by", "library_ms",
+                        "library_err", "library_lse_err",
+                        "sdpa_without_softcap_ms", "max_abs_err",
+                        "lse_err", "empty_shard_rows")}
+                    for c, r in mesh["shards"].items()}
                 big = checks["cases"][6]
                 extra["at_" + big["case"]] = {
                     k: big[k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms",
                                         "device_kernels_per_call")}
             if name == "flash_attention":
+                extra["launches_mesh_prefill"] = \
+                    mesh["model"]["prefill_launches"][name]
                 big = checks["s2048"]
                 extra["at_" + big["case"]] = {
                     k: big[k] for k in ("ms", "plain_ms", "bound_ms",

@@ -19,8 +19,8 @@ Layout:  <dir>/step_<N>/
   raises a write error at ``wait``.
 
 ``restore`` puts each leaf on its template leaf's device and dtype. Its
-``shardings`` argument (restore onto another mesh) waits for the
-distribution slice.
+``shardings`` argument (restore onto another mesh) comes with training on
+a mesh (slice 13).
 """
 from __future__ import annotations
 
@@ -181,7 +181,8 @@ class CheckpointManager:
         leaf's shape, dtype and device."""
         if shardings is not None:
             raise NotImplementedError(
-                "restoring onto shardings comes with the distribution slice")
+                "restoring onto shardings comes with training on a mesh "
+                "(slice 13)")
         path = self._step_dir(step)
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)

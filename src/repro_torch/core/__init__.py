@@ -1,7 +1,7 @@
 # The paper's primary contribution — the LightKernel persistent execution
 # model (mailbox protocol, persistent and megakernel runtimes, cluster
 # pinning, dispatcher, WCET accounting) — ported to PyTorch. Counterpart of
-# ``repro.core``, less ``make_cluster_mesh`` (the distribution slice).
+# ``repro.core``, less ``make_cluster_mesh`` (training on a mesh, slice 13).
 from repro_torch.core import mailbox
 from repro_torch.core.clusters import Cluster, ClusterManager
 from repro_torch.core.dispatcher import (AdmissionError, AllClustersFailed,

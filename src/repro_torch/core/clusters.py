@@ -8,8 +8,8 @@ card, k clusters are carved by repeating the device, ``devices=[cuda] * k``,
 as the reference does on one TPU core: each cluster then gets its own
 persistent worker (``MegaRuntime``, one CTA, its own stream).
 
-What waits for the distribution slice: a cluster holds no device mesh, and
-``make_cluster_mesh`` raises ``NotImplementedError``.
+What waits for training on a mesh (slice 13): a cluster holds no device
+mesh, and ``make_cluster_mesh`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -34,8 +34,9 @@ class Cluster:
 def make_cluster_mesh(devices: Sequence, axis_names=("data", "model"),
                       shape: Optional[tuple] = None):
     raise NotImplementedError(
-        "cluster device meshes are not ported yet: they come with the "
-        "distribution slice (slice 5, distributed/sharding.py)")
+        "cluster device meshes are not ported yet: they come with "
+        "training on a mesh (slice 13); serving meshes are "
+        "launch/mesh.py's")
 
 
 class ClusterManager:
@@ -51,7 +52,7 @@ class ClusterManager:
             devices = [torch.device("cuda", i)
                        for i in range(torch.cuda.device_count())]
         self.all_devices = list(devices)
-        # kept for the mesh layout of the distribution slice
+        # kept for the cluster meshes of slice 13
         self.axis_names = axis_names
         self.cluster_shape = cluster_shape
         self.clusters: list[Cluster] = []

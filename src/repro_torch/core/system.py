@@ -38,8 +38,8 @@ first device when that is a ``torch.device``, else on ``"cuda"``, which
 raises where CUDA is absent; the scan runtime compiles
 nothing, so only ``runtime="mega"`` boots go through the shared
 ``ExecutableCache``; there is no ``donate`` knob (state is updated in
-place); ``state_shardings_factory`` waits for the distribution slice and
-raises ``NotImplementedError``.
+place); ``state_shardings_factory`` waits for cluster meshes (slice 13)
+and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -152,7 +152,7 @@ class LkSystem:
         if state_shardings_factory is not None:
             raise NotImplementedError(
                 "state_shardings_factory needs cluster meshes, which come "
-                "with the distribution slice (slice 5)")
+                "with training on a mesh (slice 13)")
         self.cm = cluster_manager if cluster_manager is not None else \
             ClusterManager(devices=devices, n_clusters=n_clusters,
                            axis_names=axis_names,

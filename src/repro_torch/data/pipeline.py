@@ -8,7 +8,7 @@ elastic restart — no data-loader state in checkpoints beyond the step id.
 Each host materializes only its data-parallel slice. The sources are the
 reference's numpy code, so the port draws the reference's batches bit for
 bit; ``ShardedLoader.device_batch`` puts them on the loader's device. Its
-mesh placement waits for the distribution slice.
+mesh placement comes with training on a mesh (slice 13).
 """
 from __future__ import annotations
 
@@ -81,14 +81,15 @@ class DataConfig:
 
 class ShardedLoader:
     """Yields host-local batches as int32 tensors on ``device`` (default
-    CUDA, which raises where CUDA is absent). ``mesh`` placement waits for
-    the distribution slice."""
+    CUDA, which raises where CUDA is absent). ``mesh`` placement comes with
+    training on a mesh (slice 13)."""
 
     def __init__(self, source, dcfg: DataConfig, mesh=None, batch_spec=None,
                  *, device="cuda"):
         if mesh is not None:
             raise NotImplementedError(
-                "mesh placement of batches comes with the distribution slice")
+                "mesh placement of batches comes with training on a mesh "
+                "(slice 13)")
         self.source = source
         self.dcfg = dcfg
         self.mesh = mesh

@@ -25,3 +25,31 @@ def refuse_grad(name: str, *tensors) -> None:
             f"{name} has no backward: an input requires grad with grad mode "
             f"on, and the kernel's output would carry no gradient (train "
             f"through the plain version, or call it under torch.no_grad())")
+
+
+def shape_only(*tensors) -> bool:
+    """Whether a call computes shapes only: under ``FakeTensorMode`` (the
+    dry run traces the card's path on fake tensors), or for meta
+    tensors. A wrapper then returns outputs of the right shape, dtype and
+    device, and launches nothing."""
+    from torch._guards import detect_fake_mode
+    from torch._subclasses.fake_tensor import FakeTensor
+    if detect_fake_mode() is not None:
+        return True
+    return any(isinstance(t, FakeTensor) or t.device.type == "meta"
+               for t in tensors)
+
+
+# What the shape-only branches would have computed: {kernel name: [calls,
+# operations, bytes]} (each input read once, each output written once).
+# The dry run reads it beside FlopCounterMode, which does not see a kernel
+# launched through ctypes.
+SHAPE_ONLY_TALLY: dict[str, list] = {}
+
+
+def tally(name: str, ops: float, inputs, outputs) -> None:
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    row = SHAPE_ONLY_TALLY.setdefault(name, [0, 0.0, 0.0])
+    row[0] += 1
+    row[1] += float(ops)
+    row[2] += float(nbytes)

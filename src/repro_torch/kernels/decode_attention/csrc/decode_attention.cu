@@ -10,6 +10,17 @@
 // requires valid_len[b] >= 1 (the decode path always has the just-written
 // token); valid_len above S is clamped to S.
 //
+// Shard mode (k4_decode_attention_shard): the caches hold one sequence
+// shard, global positions [off, off + S_loc) of a cache of S_glob. The live
+// range, global [max(0, vl - window), min(vl, S_glob)) (or from 0 without a
+// window), is cut to the shard on the device, and the kernel writes the
+// shard's partial: its normalized output and lse = m + log(l) in f32, (B, Hq);
+// a shard with no live key writes o = 0 and lse = -inf and loads no key.
+// merge_decode_partials (kernel.py) joins the partials of the shards — over
+// the mesh's all_reduce on the seq axes, or a list on one card — as
+// repro's decode_attention_sharded merges its shard_map partials
+// (src/repro/models/attention.py:479-514).
+//
 // What bounds it on the H100: bytes. Each live cache row is used by G query
 // heads for 4*D operations each — far below the ~295 operations per byte at
 // which bf16 work turns operation-bound — so the least time is the live K/V
@@ -230,14 +241,15 @@ __device__ __forceinline__ void issue_tile(T* sK, T* sV, const T* k,
 // cluster's CTAs, one a CTA (sM[g], sL[g], sAcc[g D + d] in its shared
 // memory; m = -inf for a partial without a live key), each CTA a slice of
 // the G x D outputs: m = max over partials, c = exp(m_p - m) (0 for empty
-// ones), out = sum(c * acc) / max(sum(c * l), 1e-30). Reads the other
-// CTAs' partials through distributed shared memory, every CTA's words of
-// an output issued at once. n <= MAX_CLUSTER: the launch sets no
+// ones), out = sum(c * acc) / max(sum(c * l), 1e-30); with lse (shard
+// mode) also lse[g] = m + log(sum(c * l)), -inf where no partial had a
+// key. Reads the other CTAs' partials through distributed shared memory,
+// every CTA's words of an output issued at once. n <= MAX_CLUSTER: the launch sets no
 // non-portable cluster attribute, so the card refuses a larger cluster.
 template <typename T>
 __device__ void cluster_merge(const cg::cluster_group& cluster,
                               float* sM, float* sL, float* sAcc, int G, int D,
-                              T* out) {
+                              T* out, float* lse) {
   const int n = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   for (int idx = rank * blockDim.x + threadIdx.x; idx < G * D;
@@ -263,20 +275,27 @@ __device__ void cluster_merge(const cg::cluster_group& cluster,
       o += c * os[r];
     }
     from_float(o / fmaxf(lsum, 1e-30f), out + idx);
+    if (lse != nullptr && idx % D == 0)
+      lse[g] = isfinite(mg) ? mg + logf(lsum) : -INFINITY;
   }
 }
 
-// The key range [a, e) of split `sp` of n_split: the live keys
-// [lo, valid) cut into even ranges (split_ranges in
-// tests/test_torch_kernels_attention.py mirrors it).
-__device__ __forceinline__ void split_range(int valid_len, int S, int window,
+// The key range [a, e) of split `sp` of n_split, in the shard's own
+// positions: the live keys, global [lo, valid), cut to the shard
+// [off, off + S_loc) and then into even ranges (split_ranges in
+// tests/test_torch_kernels_attention.py mirrors it). Unsharded: off = 0,
+// S_loc = S_glob = S.
+__device__ __forceinline__ void split_range(int valid_len, int S_glob,
+                                            int window, int off, int S_loc,
                                             int sp, int n_split, int& a,
                                             int& e) {
-  const int valid = min(valid_len, S);
+  const int valid = min(valid_len, S_glob);
   const int lo = window > 0 ? max(0, valid - window) : 0;
-  const int chunk = (max(valid - lo, 0) + n_split - 1) / n_split;
-  a = lo + sp * chunk;
-  e = min(a + chunk, valid);
+  const int lo_l = max(lo, off) - off;
+  const int hi_l = max(min(valid, off + S_loc) - off, lo_l);
+  const int chunk = (hi_l - lo_l + n_split - 1) / n_split;
+  a = lo_l + sp * chunk;
+  e = min(a + chunk, hi_l);
 }
 
 // grid (n_split, Hkv, B), clusters of (n_split, 1, 1); 32 * max(G,
@@ -287,7 +306,8 @@ __global__ void __launch_bounds__(32 * MAX_G)
 decode_ffma_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int* __restrict__ valid_len,
               T* __restrict__ out, int S, int Hq, int Hkv, float softcap,
-              int window, float scale) {
+              int window, float scale, int off, int S_glob,
+              float* __restrict__ lse) {
   using L = Layout<D, T>;
   constexpr int BK = L::BK;
   constexpr int STAGES = L::STAGES;
@@ -319,7 +339,7 @@ decode_ffma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sAcc = sL + G;
 
   int a, e;
-  split_range(valid_len[b], S, window, sp, n_split, a, e);
+  split_range(valid_len[b], S_glob, window, off, S, sp, n_split, a, e);
   const int ntiles = e > a ? (e - a + BK - 1) / BK : 0;
 
   // this thread's copies of tile j (keys a + j*BK ...) into its stage
@@ -428,7 +448,8 @@ decode_ffma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   cluster.sync();                     // every partial of the cluster written
   cluster_merge<T>(cluster, sM, sL, sAcc, G, D,
-                   out + ((size_t)b * Hq + hk * G) * D);
+                   out + ((size_t)b * Hq + hk * G) * D,
+                   lse == nullptr ? nullptr : lse + (size_t)b * Hq + hk * G);
   cluster.sync();                     // no CTA leaves while others read it
 }
 
@@ -474,7 +495,8 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ v,
                   const int* __restrict__ valid_len,
                   __nv_bfloat16* __restrict__ out, int S, int Hq, int Hkv,
-                  float softcap, int window, float scale) {
+                  float softcap, int window, float scale, int off,
+                  int S_glob, float* __restrict__ lse) {
   using L = MmaLayout<D>;
   using T = __nv_bfloat16;
   constexpr int STAGES = L::STAGES;
@@ -496,7 +518,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   T* ring = reinterpret_cast<T*>(smem_raw);
 
   int a, e;
-  split_range(valid_len[b], S, window, sp, n_split, a, e);
+  split_range(valid_len[b], S_glob, window, off, S, sp, n_split, a, e);
   const int ntiles = e > a ? (e - a + MMA_BK - 1) / MMA_BK : 0;
   auto issue = [&](int j) {
     T* sK = ring + (j % STAGES) * L::STAGE_ELEMS;
@@ -657,7 +679,8 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
   cluster.sync();                     // every partial of the cluster written
   cluster_merge<T>(cluster, cM, cL, cAcc, G, D,
-                   out + ((size_t)b * Hq + hk * G) * D);
+                   out + ((size_t)b * Hq + hk * G) * D,
+                   lse == nullptr ? nullptr : lse + (size_t)b * Hq + hk * G);
   cluster.sync();                     // no CTA leaves while others read it
 }
 
@@ -695,7 +718,7 @@ template <int D, typename T>
 int launch_ffma(const void* q, const void* k, const void* v,
                 const int* valid_len, void* out, int B, int S, int Hq,
                 int Hkv, int n_split, float softcap, int window, float scale,
-                cudaStream_t stream) {
+                int off, int S_glob, float* lse, cudaStream_t stream) {
   const int G = Hq / Hkv;
   return cluster_launch(decode_ffma_kernel<D, T>, n_split, Hkv, B,
                         32 * (G > MIN_WARPS ? G : MIN_WARPS),
@@ -703,54 +726,74 @@ int launch_ffma(const void* q, const void* k, const void* v,
                         static_cast<const T*>(q), static_cast<const T*>(k),
                         static_cast<const T*>(v), valid_len,
                         static_cast<T*>(out), S, Hq, Hkv, softcap, window,
-                        scale);
+                        scale, off, S_glob, lse);
 }
 
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v,
                const int* valid_len, void* out, int B, int S, int Hq,
                int Hkv, int n_split, float softcap, int window, float scale,
-               cudaStream_t stream) {
+               int off, int S_glob, float* lse, cudaStream_t stream) {
   using T = __nv_bfloat16;
   return cluster_launch(decode_mma_kernel<D>, n_split, Hkv, B,
                         32 * MMA_WARPS, MmaLayout<D>::bytes(Hq / Hkv),
                         stream, static_cast<const T*>(q),
                         static_cast<const T*>(k), static_cast<const T*>(v),
                         valid_len, static_cast<T*>(out), S, Hq, Hkv, softcap,
-                        window, scale);
+                        window, scale, off, S_glob, lse);
 }
 
 }  // namespace
 
-// One launch: q (B,1,Hq,D), caches (B,S,Hkv,D), valid_len (B,) i32 ->
-// out (B,1,Hq,D), n_split CTAs (one cluster) a (sequence, kv head).
-// Returns 0, a cudaError_t code (the attribute call's or the launch's: a
-// cluster the card refuses), -1 for an unsupported head dim, or -2 for an
-// unsupported group size (Hq/Hkv must be in [1, 16]).
+// One launch over a cache shard: q (B,1,Hq,D), caches (B,S_loc,Hkv,D) at
+// global positions [off, off + S_loc) of a cache of S_glob, valid_len (B,)
+// i32 -> out (B,1,Hq,D) and, when lse is not null, lse (B,Hq) f32; n_split
+// CTAs (one cluster) a (sequence, kv head). Returns 0, a cudaError_t code
+// (the attribute call's or the launch's: a cluster the card refuses), -1
+// for an unsupported head dim, or -2 for an unsupported group size (Hq/Hkv
+// must be in [1, 16]).
+extern "C" int k4_decode_attention_shard(const void* q, const void* k,
+                                         const void* v, const void* valid_len,
+                                         void* out, void* lse, int B,
+                                         int S_loc, int Hq, int Hkv, int D,
+                                         int is_bf16, int n_split,
+                                         float softcap, int window,
+                                         float scale, int off, int S_glob,
+                                         void* stream) {
+  const int G = Hq / Hkv;
+  if (G < 1 || G > MAX_G || G * Hkv != Hq) return -2;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* vl = static_cast<const int*>(valid_len);
+  float* ls = static_cast<float*>(lse);
+  const int S = S_loc;
+  using bf16 = __nv_bfloat16;
+  switch (is_bf16 ? D : -D) {
+    case 32: return launch_mma<32>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, off, S_glob, ls, st);
+    case 64: return launch_mma<64>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, off, S_glob, ls, st);
+    case 112: return launch_mma<112>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, off, S_glob, ls, st);
+    case 128: return launch_mma<128>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, off, S_glob, ls, st);
+    case 256: return launch_ffma<256, bf16>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, off, S_glob, ls, st);
+    case -32: return launch_ffma<32, float>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, off, S_glob, ls, st);
+    case -64: return launch_ffma<64, float>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, off, S_glob, ls, st);
+    case -112: return launch_ffma<112, float>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, off, S_glob, ls, st);
+    case -128: return launch_ffma<128, float>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, off, S_glob, ls, st);
+    case -256: return launch_ffma<256, float>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, off, S_glob, ls, st);
+    default: return -1;
+  }
+}
+
+// One launch over the whole cache: q (B,1,Hq,D), caches (B,S,Hkv,D),
+// valid_len (B,) i32 -> out (B,1,Hq,D); the shard mode's kernel with one
+// shard of S and no lse.
 extern "C" int k4_decode_attention(const void* q, const void* k,
                                    const void* v, const void* valid_len,
                                    void* out, int B, int S, int Hq, int Hkv,
                                    int D, int is_bf16, int n_split,
                                    float softcap, int window, float scale,
                                    void* stream) {
-  const int G = Hq / Hkv;
-  if (G < 1 || G > MAX_G || G * Hkv != Hq) return -2;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* vl = static_cast<const int*>(valid_len);
-  using bf16 = __nv_bfloat16;
-  switch (is_bf16 ? D : -D) {
-    case 32: return launch_mma<32>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, st);
-    case 64: return launch_mma<64>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, st);
-    case 112: return launch_mma<112>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, st);
-    case 128: return launch_mma<128>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, st);
-    case 256: return launch_ffma<256, bf16>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, st);
-    case -32: return launch_ffma<32, float>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, st);
-    case -64: return launch_ffma<64, float>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, st);
-    case -112: return launch_ffma<112, float>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, st);
-    case -128: return launch_ffma<128, float>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, st);
-    case -256: return launch_ffma<256, float>(q, k, v, vl, out, B, S, Hq, Hkv, n_split, softcap, window, scale, st);
-    default: return -1;
-  }
+  return k4_decode_attention_shard(q, k, v, valid_len, out, nullptr, B, S, Hq,
+                                   Hkv, D, is_bf16, n_split, softcap, window,
+                                   scale, 0, S, stream);
 }
 
 extern "C" const char* k4_error_string(int err) {

@@ -9,7 +9,17 @@ range of the live keys it derives from ``valid_len`` on the device (bf16
 at D = 32, 64, 112 and 128 on the tensor cores, f32 and D = 256 in FFMA), merged
 through distributed shared memory — and uses ``decode_attention_plain`` for
 CPU tensors, the only case in which it does. On a CUDA tensor it launches
-the kernel or raises.
+the kernel or raises; under ``FakeTensorMode`` or on meta tensors it returns
+an output of the right shape and launches nothing (the dry run).
+
+``decode_attention_partial`` is the kernel's shard mode, the body of
+``models.attention.decode_attention_sharded`` on a mesh whose cache is
+sharded on its sequence: the caches hold positions [off, off + S_loc) of a
+cache of ``seq_len``, and the kernel returns the shard's normalized output
+and its log-sum-exp (f32, (B, Hq)); an empty shard gives 0 and -inf.
+``merge_decode_partials`` joins the shards' partials, over a list or over
+the mesh's all_reduce; ``decode_attention_partial_plain`` is the plain
+version, the reference's shard_map body.
 """
 from __future__ import annotations
 
@@ -20,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels import _build, refuse_grad, shape_only, tally
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 HEAD_DIMS = (32, 64, 112, 128, 256)
@@ -42,6 +52,10 @@ def library() -> ctypes.CDLL:
         lib.k4_decode_attention.argtypes = [
             vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf, ci, cf, vp]
         lib.k4_decode_attention.restype = ci
+        lib.k4_decode_attention_shard.argtypes = [
+            vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf, ci, cf,
+            ci, ci, vp]
+        lib.k4_decode_attention_shard.restype = ci
         lib.k4_error_string.argtypes = [ci]
         lib.k4_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -124,27 +138,156 @@ def decode_attention(q, k_cache, v_cache, valid_len, *,
     stream (one launch, no synchronization, no scratch); CPU tensors take
     the plain version. ``decode_attention.launches`` counts launches."""
     refuse_grad("decode_attention", q, k_cache, v_cache)
+    if shape_only(q, k_cache, v_cache):
+        out = torch.empty_like(q)
+        tally("K4", _ops(q, k_cache), (q, k_cache, v_cache, valid_len),
+              (out,))
+        return out
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, valid_len,
                                       attn_softcap=attn_softcap,
                                       window=window)
-    _check(q, k_cache, v_cache, valid_len)
-    B, S, Hkv, D = k_cache.shape
-    Hq = q.shape[2]
-    window = int(window or 0)
-    out = torch.empty_like(q)
-    err = library().k4_decode_attention(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        valid_len.data_ptr(), out.data_ptr(), B, S, Hq, Hkv, D,
-        int(q.dtype == torch.bfloat16), split_count(B, S, Hkv, window),
-        float(attn_softcap or 0.0), window, 1.0 / math.sqrt(D),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        msg = {-1: "unsupported head dim", -2: "unsupported group size"}.get(
-            err) or library().k4_error_string(err).decode()
-        raise RuntimeError(f"decode_attention kernel launch failed: {msg}")
+    out, _ = _launch("decode_attention", q, k_cache, v_cache, valid_len,
+                     attn_softcap, window)
     decode_attention.launches += 1
     return out
 
 
 decode_attention.launches = 0
+
+
+def _launch(name, q, k, v, valid_len, attn_softcap, window, shard=None):
+    """One launch of K4 on the current stream: over the whole cache, or with
+    ``shard = (off, seq_len)`` in its shard mode, which also writes the lse.
+    Returns (out, lse or None)."""
+    _check(q, k, v, valid_len)
+    B, S, Hkv, D = k.shape
+    Hq = q.shape[2]
+    window = int(window or 0)
+    out = torch.empty_like(q)
+    common = (int(q.dtype == torch.bfloat16), split_count(B, S, Hkv, window),
+              float(attn_softcap or 0.0), window, 1.0 / math.sqrt(D))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_len.data_ptr(),
+            out.data_ptr())
+    lse = None
+    if shard is None:
+        err = library().k4_decode_attention(*ptrs, B, S, Hq, Hkv, D, *common,
+                                            stream)
+    else:
+        off, seq_len = shard
+        if not (0 <= off and off + S <= seq_len):
+            raise ValueError(f"shard [{off}, {off + S}) lies outside a "
+                             f"cache of {seq_len}")
+        lse = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
+        err = library().k4_decode_attention_shard(
+            *ptrs, lse.data_ptr(), B, S, Hq, Hkv, D, *common, int(off),
+            int(seq_len), stream)
+    _raise_on(err, name)
+    return out, lse
+
+
+def _ops(q, k_cache) -> float:
+    """Q·Kᵀ and P·V over every cache position (the live count is data the
+    dry run does not have): 4 B Hq S D."""
+    B, S, _, D = k_cache.shape
+    return 4.0 * B * q.shape[2] * S * D
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err:
+        msg = {-1: "unsupported head dim", -2: "unsupported group size"}.get(
+            err) or library().k4_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg}")
+
+
+# ---------------------------------------------------------------------------
+# Shard mode: one sequence shard's partial, and the merge
+# ---------------------------------------------------------------------------
+
+def decode_attention_partial_plain(q, k_shard, v_shard, valid_len, *,
+                                   off: int, seq_len: int,
+                                   attn_softcap: float = 0.0,
+                                   window: int = 0):
+    """Plain version of the shard mode, the reference's shard_map body
+    (``src/repro/models/attention.py:479-514``) normalized: f32 scores over
+    the shard's positions off + [0, S_loc), masked at -inf outside the live
+    range [valid - window, valid) (valid = min(valid_len, seq_len)); m the
+    max, l the sum of exp(s - m). Returns (o = P·V / l in q's dtype,
+    lse = m + log l (B, Hq) f32); a shard without a live key gives 0 and
+    -inf."""
+    B, S_loc, Hkv, D = k_shard.shape
+    G = q.shape[2] // Hkv
+    kf = k_shard.float().repeat_interleave(G, dim=2)
+    vf = v_shard.float().repeat_interleave(G, dim=2)
+    s = torch.einsum("bhd,bkhd->bhk", q[:, 0].float(), kf) / math.sqrt(D)
+    if attn_softcap > 0:
+        s = torch.tanh(s / attn_softcap) * attn_softcap
+    pos = off + torch.arange(S_loc, device=q.device)[None, :]
+    vl = valid_len.to(q.device).long().clamp(max=seq_len)[:, None]
+    mask = pos < vl
+    if window > 0:
+        mask &= pos >= (vl - window)
+    s = torch.where(mask[:, None, :], s, -math.inf)
+    m = s.amax(dim=-1)                                       # (B,Hq)
+    live = torch.isfinite(m)
+    m_safe = torch.where(live, m, torch.zeros_like(m))
+    p = torch.where(mask[:, None, :], torch.exp(s - m_safe[..., None]),
+                    torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhk,bkhd->bhd", p, vf) / l.clamp(min=1e-30)[..., None]
+    lse = torch.where(live, m_safe + torch.log(l.clamp(min=1e-30)),
+                      torch.full_like(m, -math.inf))
+    return o[:, None].to(q.dtype), lse
+
+
+def merge_decode_partials(o, lse, all_reduce=None):
+    """Join shards' partials: M = max of the lse values, corr_i =
+    exp(lse_i - M) (0 where lse_i is -inf), out = sum corr_i o_i /
+    max(sum corr_i, 1e-30), in f32, cast to o's dtype. Without
+    ``all_reduce``, ``o`` and ``lse`` are sequences of the shards' (B,1,Hq,D)
+    and (B,Hq) tensors (one card); with it, they are this rank's and
+    ``all_reduce(t, op)`` (op "max" or "sum") returns a tensor reduced over
+    the mesh's sequence axes."""
+    if all_reduce is None:
+        o, lse = torch.stack(list(o)), torch.stack(list(lse))
+
+        def all_reduce(t, op):
+            return t.amax(dim=0) if op == "max" else t.sum(dim=0)
+    m = all_reduce(lse, "max")
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    corr = torch.where(torch.isfinite(lse), torch.exp(lse - m),
+                       torch.zeros_like(lse))
+    num = all_reduce(corr[..., None, :, None] * o.float(), "sum")
+    den = all_reduce(corr, "sum")
+    return (num / den.clamp(min=1e-30)[..., None, :, None]).to(o.dtype)
+
+
+def decode_attention_partial(q, k_shard, v_shard, valid_len, *, off: int,
+                             seq_len: int, attn_softcap: float = 0.0,
+                             window: int = 0):
+    """q: (B,1,Hq,D); caches: (B,S_loc,Hkv,D), positions [off, off + S_loc)
+    of a cache of ``seq_len``; valid_len: (B,) int32 (0 allowed) -> (o
+    (B,1,Hq,D), lse (B,Hq) f32). CUDA tensors launch K4's shard mode (one
+    launch; the live range is cut to the shard on the device); CPU tensors
+    take the plain version. ``decode_attention_partial.launches`` counts
+    launches."""
+    refuse_grad("decode_attention_partial", q, k_shard, v_shard)
+    if shape_only(q, k_shard, v_shard):
+        out = torch.empty_like(q)
+        lse = torch.empty(q.shape[0], q.shape[2], dtype=torch.float32,
+                          device=q.device)
+        tally("K4", _ops(q, k_shard), (q, k_shard, v_shard, valid_len),
+              (out, lse))
+        return out, lse
+    if q.device.type == "cpu":
+        return decode_attention_partial_plain(
+            q, k_shard, v_shard, valid_len, off=off, seq_len=seq_len,
+            attn_softcap=attn_softcap, window=window)
+    out, lse = _launch("decode_attention_partial", q, k_shard, v_shard,
+                       valid_len, attn_softcap, window, shard=(off, seq_len))
+    decode_attention_partial.launches += 1
+    return out, lse
+
+
+decode_attention_partial.launches = 0

@@ -5,7 +5,9 @@ Port of ``repro.kernels.flash_attention`` (``_flash_kernel`` /
 ``flash_attention_pallas``). ``flash_attention`` launches the CUDA kernel
 in ``csrc/flash_attention.cu`` for CUDA tensors and uses
 ``flash_attention_plain`` for CPU tensors — the only case in which it does.
-On a CUDA tensor it launches the kernel or raises.
+On a CUDA tensor it launches the kernel or raises; under ``FakeTensorMode``
+or on meta tensors it returns an output of the right shape and launches
+nothing (the dry run).
 
 The query and key lengths may differ (whisper's cross-attention: a prompt
 against 1500 encoder frames) where there is neither a causal mask nor a
@@ -22,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels import _build, refuse_grad, shape_only, tally
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (32, 64, 112, 128, 256)
@@ -111,6 +113,20 @@ def _check(q, k, v) -> None:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+def _ops(q, k, causal: bool, window: int) -> float:
+    """Q·Kᵀ and P·V over the (query, key) pairs the masks leave: 4 B Hq D
+    pairs."""
+    B, S, Hq, D = q.shape
+    Skv = k.shape[1]
+    if not causal:
+        pairs = S * Skv
+    elif window and window < S:
+        pairs = window * (window + 1) // 2 + (S - window) * window
+    else:
+        pairs = S * (S + 1) // 2
+    return 4.0 * B * Hq * D * pairs
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     attn_softcap: float = 0.0,
                     seq_len: Optional[int] = None):
@@ -119,6 +135,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     on the current stream (no synchronization); CPU tensors take the plain
     version. ``flash_attention.launches`` counts kernel launches."""
     refuse_grad("flash_attention", q, k, v)
+    if shape_only(q, k, v):
+        out = torch.empty_like(q)
+        tally("K5", _ops(q, k, causal, window), (q, k, v), (out,))
+        return out
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      attn_softcap=attn_softcap,

@@ -7,7 +7,8 @@ the chunk-end state. ``ssd_chunk`` launches the CUDA kernel in
 ``csrc/ssd_scan.cu`` (one launch computes both outputs, in 3xTF32 on the
 tensor cores) for CUDA tensors and uses ``ssd_chunk_plain`` for CPU tensors
 — the only case in which it does. On a CUDA tensor it launches the kernel
-or raises.
+or raises; under ``FakeTensorMode`` or on meta tensors it returns outputs of
+the right shapes and launches nothing (the dry run).
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels import _build, refuse_grad, shape_only, tally
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 MAX_HEAD_DIM = 64        # P: one 64-wide tensor-core tile of a head
@@ -103,6 +104,15 @@ def ssd_chunk(x, dt, cum, Bm, Cm):
     take the plain version. ``ssd_chunk.launches`` counts kernel launches
     (one a call, one device kernel computing both outputs)."""
     refuse_grad("ssd_chunk", x, dt, cum, Bm, Cm)
+    if shape_only(x, dt, cum, Bm, Cm):
+        B, C, L, H, P = x.shape
+        N = Bm.shape[-1]
+        y = torch.empty_like(x)
+        states = x.new_empty((B, C, H, P, N))
+        # C·Bᵀ, the masked product with x, and the chunk-end states
+        ops = 2.0 * B * C * (L * L * N + H * (L * L * P + L * P * N))
+        tally("K6", ops, (x, dt, cum, Bm, Cm), (y, states))
+        return y, states
     if x.device.type == "cpu":
         return ssd_chunk_plain(x, dt, cum, Bm, Cm)
     _check(x, dt, cum, Bm, Cm)

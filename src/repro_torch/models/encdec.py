@@ -26,17 +26,19 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (Init, mlp_apply, mlp_params, rms_norm,
                                        sinusoidal_positions)
-from repro_torch.models.transformer import (_layer, remat_wrap,
-                                            stack_layers, unstack_layers)
+from repro_torch.distributed.sharding import axes
+from repro_torch.models.transformer import (KV_CACHE_AXES, _layer,
+                                            remat_wrap, stack_layers,
+                                            unstack_layers)
 
 
 def _enc_layer_params(b: Init, cfg):
     d = cfg.d_model
     return {
-        "ln_attn": b.p((d,), init="ones"),
+        "ln_attn": b.p((d,), ("embed",), init="ones"),
         "attn": attn.attn_params(b, d, cfg.num_heads, cfg.num_kv_heads,
                                  cfg.resolved_head_dim, qkv_bias=False),
-        "ln_mlp": b.p((d,), init="ones"),
+        "ln_mlp": b.p((d,), ("embed",), init="ones"),
         "mlp": mlp_params(b, d, cfg.d_ff, cfg.gated_mlp),
     }
 
@@ -44,13 +46,13 @@ def _enc_layer_params(b: Init, cfg):
 def _dec_layer_params(b: Init, cfg):
     d = cfg.d_model
     return {
-        "ln_self": b.p((d,), init="ones"),
+        "ln_self": b.p((d,), ("embed",), init="ones"),
         "self_attn": attn.attn_params(b, d, cfg.num_heads, cfg.num_kv_heads,
                                       cfg.resolved_head_dim, qkv_bias=False),
-        "ln_cross": b.p((d,), init="ones"),
+        "ln_cross": b.p((d,), ("embed",), init="ones"),
         "cross_attn": attn.attn_params(b, d, cfg.num_heads, cfg.num_kv_heads,
                                        cfg.resolved_head_dim, qkv_bias=False),
-        "ln_mlp": b.p((d,), init="ones"),
+        "ln_mlp": b.p((d,), ("embed",), init="ones"),
         "mlp": mlp_params(b, d, cfg.d_ff, cfg.gated_mlp),
     }
 
@@ -58,7 +60,7 @@ def _dec_layer_params(b: Init, cfg):
 def encdec_params(b: Init, cfg):
     return {
         "enc": b.stack(cfg.encoder_layers, lambda bb: _enc_layer_params(bb, cfg)),
-        "enc_norm": b.p((cfg.d_model,), init="ones"),
+        "enc_norm": b.p((cfg.d_model,), ("embed",), init="ones"),
         "dec": b.stack(cfg.num_layers, lambda bb: _dec_layer_params(bb, cfg)),
     }
 
@@ -119,8 +121,8 @@ def decoder_forward(params, x, enc_out, cfg, ctx, *, mode: str, pos,
             cache = _layer(caches["self"], li)
             kc, vc = attn.cache_update_sharded(cache["k"], cache["v"], k, v,
                                                pos[:, 0], ctx)
-            o = attn.decode_attention_local(q, kc, vc, valid_len,
-                                            plain=plain)
+            o = attn.decode_attention_sharded(q, kc, vc, valid_len, ctx,
+                                              plain=plain)
         else:
             o = attn.attention(q, k, v, cfg, ctx, causal=True, plain=plain)
             selfs.append({"k": k, "v": v})
@@ -132,7 +134,7 @@ def decoder_forward(params, x, enc_out, cfg, ctx, *, mode: str, pos,
             cross = _layer(caches["cross"], li)
             oc = attn.decode_attention_local(
                 qc, cross["k"], cross["v"], frames_len,
-                attn_softcap=cfg.attn_softcap, plain=plain)
+                attn_softcap=cfg.attn_softcap, plain=plain, ctx=ctx)
         else:
             kx, vx = _cross_kv(lp, enc_out, ctx)
             crosses.append({"k": kx, "v": vx})
@@ -177,3 +179,9 @@ def encdec_init_caches(cfg, batch: int, max_seq: int, device):
         "cross": {"k": torch.zeros((L, batch, F, hk, dh), **dt),
                   "v": torch.zeros((L, batch, F, hk, dh), **dt)},
     }
+
+
+def encdec_cache_axes(cfg):
+    cx = axes("layers", "cache_batch", None, "cache_heads", None)
+    return {"self": {"k": KV_CACHE_AXES, "v": KV_CACHE_AXES},
+            "cross": {"k": cx, "v": cx}}

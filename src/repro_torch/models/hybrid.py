@@ -21,9 +21,10 @@ import torch
 from repro_torch.core.persistent import tree_map
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import Init
-from repro_torch.models.transformer import (_layer, layer_apply,
-                                            layer_params, remat_wrap,
-                                            stack_layers, unstack_layers)
+from repro_torch.models.transformer import (KV_CACHE_AXES, _layer,
+                                            layer_apply, layer_params,
+                                            remat_wrap, stack_layers,
+                                            stacked_axes, unstack_layers)
 
 
 def _counts(cfg):
@@ -38,7 +39,7 @@ def hybrid_params(b: Init, cfg):
     d = cfg.d_model
     p = {
         "shared": {
-            "w_cat": b.p((2 * d, d)),
+            "w_cat": b.p((2 * d, d), ("embed", None)),
             "blk": layer_params(b, cfg, "attn_mlp"),
         },
         "groups": b.stack(
@@ -144,3 +145,15 @@ def hybrid_init_caches(cfg, batch: int, max_seq: int, device):
     if tail:
         caches["ssm_tail"] = stacked(tail)
     return caches
+
+
+def hybrid_cache_axes(cfg):
+    groups, every, tail = _counts(cfg)
+    stacked = stacked_axes(ssm_mod.ssm_state_axes(cfg))
+    out = {
+        "shared_attn": {"k": KV_CACHE_AXES, "v": KV_CACHE_AXES},
+        "ssm_groups": [stacked for _ in range(every)],
+    }
+    if tail:
+        out["ssm_tail"] = stacked
+    return out

@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.persistent import tree_leaves, tree_map
+from repro_torch.distributed.sharding import axes
+from repro_torch.kernels import shape_only
 
 
 # ---------------------------------------------------------------------------
@@ -35,15 +37,38 @@ BIG_DRAW_BYTES = 4 * 2**30
 
 
 class Init:
-    def __init__(self, seed: int, dtype: torch.dtype, device):
+    """``Init(seed, dtype, device)`` draws parameters; ``Init.axes_mode()``
+    walks the same code and returns each parameter's logical axes instead
+    (the reference's ``Builder("axes")``): one code path yields both trees,
+    so they cannot disagree in structure."""
+
+    def __init__(self, seed: int = 0, dtype: torch.dtype = torch.float32,
+                 device="cpu", *, mode: str = "init"):
+        assert mode in ("init", "axes")
+        self.mode = mode
         self.device = torch.device(device)
         self.dtype = dtype
-        self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(int(seed))
+        # under FakeTensorMode (the dry run's abstract parameters, the
+        # port's jax.eval_shape) only shapes are made: nothing is drawn
+        self.fake = shape_only()
+        if mode == "init" and not self.fake:
+            self.gen = torch.Generator(device=self.device)
+            self.gen.manual_seed(int(seed))
 
-    def p(self, shape, init: str = "normal", scale: Optional[float] = None,
+    @staticmethod
+    def axes_mode() -> "Init":
+        return Init(mode="axes")
+
+    def p(self, shape, logical_axes=None, init: str = "normal",
+          scale: Optional[float] = None,
           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        if self.mode == "axes":
+            assert logical_axes is not None and \
+                len(shape) == len(logical_axes), (shape, logical_axes)
+            return axes(*logical_axes)
         dtype = dtype or self.dtype
+        if self.fake:
+            return torch.empty(shape, dtype=dtype, device=self.device)
         if init == "zeros":
             return torch.zeros(shape, dtype=dtype, device=self.device)
         if init == "ones":
@@ -73,8 +98,13 @@ class Init:
     def stack(self, n: int, fn: Callable) -> dict:
         """n stacked copies of a sub-tree (leading 'layers' axis), filled
         one layer at a time: the extra memory is one layer, not n (none
-        for n = 1, whose layers axis is a view)."""
+        for n = 1, whose layers axis is a view). In axes mode: the
+        sub-tree's axes under a leading "layers" axis."""
         sub = fn(self)
+        if self.mode == "axes":
+            return tree_map(lambda a: axes("layers", *a.names), sub)
+        if self.fake:
+            return tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), sub)
         if n == 1:
             return tree_map(lambda x: x[None], sub)
         out = tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), sub)
@@ -140,11 +170,9 @@ def _sinusoid(pos, d_model: int):
                                  device=pos.device)
                     * (-math.log(10000.0) / d_model))
     half = pos[:, None] * div
-    out = torch.zeros((pos.shape[0], d_model), dtype=torch.float32,
-                      device=pos.device)
-    out[:, 0::2] = torch.sin(half)
-    out[:, 1::2] = torch.cos(half)
-    return out
+    # interleaved (no in-place writes: pos may be a DTensor on a mesh)
+    return torch.stack([torch.sin(half), torch.cos(half)], dim=-1).reshape(
+        pos.shape[0], d_model)
 
 
 def sinusoidal_at(positions, d_model: int):
@@ -163,11 +191,11 @@ def sinusoidal_positions(num_pos: int, d_model: int, device="cpu"):
 
 def mlp_params(b: Init, d_model: int, d_ff: int, gated: bool):
     p = {
-        "w_in": b.p((d_model, d_ff)),
-        "w_out": b.p((d_ff, d_model)),
+        "w_in": b.p((d_model, d_ff), ("embed", "mlp")),
+        "w_out": b.p((d_ff, d_model), ("mlp", "embed")),
     }
     if gated:
-        p["w_gate"] = b.p((d_model, d_ff))
+        p["w_gate"] = b.p((d_model, d_ff), ("embed", "mlp"))
     return p
 
 
@@ -179,7 +207,9 @@ def mlp_apply(p, x, act: str, gated: bool, ctx):
     else:
         h = _act(h, act)
     h = ctx.constrain(h, "act_batch", None, "act_mlp")
-    return h @ p["w_out"]
+    # on a mesh the row-parallel product is a partial sum: reduce it once
+    # here, not at every later use of the residual stream
+    return ctx.constrain(h @ p["w_out"], "act_batch", "act_seq", "act_embed")
 
 
 def _act(x, name: str):
@@ -201,9 +231,9 @@ def softcap(x, cap: float):
 # ---------------------------------------------------------------------------
 
 def embed_params(b: Init, vocab: int, d_model: int, tied: bool):
-    p = {"table": b.p((vocab, d_model), scale=0.02)}
+    p = {"table": b.p((vocab, d_model), ("vocab", "embed"), scale=0.02)}
     if not tied:
-        p["head"] = b.p((d_model, vocab))
+        p["head"] = b.p((d_model, vocab), ("embed", "vocab"))
     return p
 
 

@@ -27,6 +27,7 @@ total.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Callable
@@ -36,9 +37,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.core.persistent import check_device, tree_map
-from repro_torch.distributed.sharding import ShardCtx
+from repro_torch.distributed.sharding import ShardCtx, axes
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import transformer as tfm
@@ -99,6 +100,9 @@ class Model:
     prefill: Callable
     decode_step: Callable
     init_caches: Callable
+    param_axes: Callable
+    cache_axes: Callable
+    input_specs: Callable
 
 
 def params_from_jax(np_tree, cfg: ModelConfig, device) -> dict:
@@ -123,11 +127,10 @@ def build(cfg: ModelConfig, ctx: ShardCtx | None = None, *,
     ctx = ctx or ShardCtx.single()
     dtype = getattr(torch, cfg.dtype)
 
-    def init(seed: int):
-        b = Init(seed, getattr(torch, cfg.param_dtype), device)
+    def build_params(b: Init):
         p = {"embed": embed_params(b, cfg.padded_vocab, cfg.d_model,
                                    cfg.tie_embeddings),
-             "final_norm": b.p((cfg.d_model,), init="ones")}
+             "final_norm": b.p((cfg.d_model,), ("embed",), init="ones")}
         if cfg.family == "hybrid":
             p["stack"] = hybrid_mod.hybrid_params(b, cfg)
         elif cfg.family == "encdec":
@@ -136,8 +139,17 @@ def build(cfg: ModelConfig, ctx: ShardCtx | None = None, *,
             p["stack"] = tfm.stack_params(b, cfg)
         return p
 
+    def init(seed: int):
+        return build_params(Init(seed, getattr(torch, cfg.param_dtype),
+                                 device))
+
+    def param_axes():
+        return build_params(Init.axes_mode())
+
     def _embed(p, tokens):
-        x = embed_lookup(p["embed"], tokens, cfg.d_model).to(dtype)
+        x = embed_lookup(p["embed"], tokens, cfg.d_model)
+        # on a mesh the vocab-sharded lookup is a masked partial sum: reduce
+        x = ctx.constrain(x, "act_batch", "act_seq", "act_embed").to(dtype)
         if cfg.scale_embeddings:
             x = x * math.sqrt(cfg.d_model)
         return x
@@ -174,6 +186,21 @@ def build(cfg: ModelConfig, ctx: ShardCtx | None = None, *,
         pe = sinusoidal_positions(x.shape[1], cfg.d_model, x.device)
         return x + pe[None].to(dtype), enc_out
 
+    def on_mesh(fn):
+        """On a mesh, plain tensors the model makes (positions, masks,
+        frequencies: the same on every rank) join DTensor ops as
+        replicated values."""
+        if ctx.mesh is None:
+            return fn
+
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            with implicit_replication():
+                return fn(*args, **kwargs)
+        return run
+
     def loss(params, batch):
         """Mean next-token cross-entropy over the text region, plus every
         aux scalar. Returns (total, {"ce", "acc", aux..., "loss"}), f32."""
@@ -202,6 +229,7 @@ def build(cfg: ModelConfig, ctx: ShardCtx | None = None, *,
         metrics["loss"] = total
         return total, metrics
 
+    @on_mesh
     def prefill(params, batch, max_seq: int):
         """Run the prompt; returns (last-position logits, caches padded to
         max_seq)."""
@@ -215,7 +243,9 @@ def build(cfg: ModelConfig, ctx: ShardCtx | None = None, *,
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = unembed(params["embed"], x[:, -1:, :], cfg.tie_embeddings,
                          cfg.logit_softcap, ctx)
-        return logits, _pad_prefill_caches(caches, max_seq)
+        caches = _pad_prefill_caches(caches, max_seq)
+        # on a mesh: each rank keeps its block of the decode placements
+        return logits, ctx.constrain_tree(caches, cache_axes())
 
     def _pad_prefill_caches(caches, max_seq):
         # attention K/V from prefill are (P,B,S,H,D): pad the seq dim to
@@ -232,6 +262,7 @@ def build(cfg: ModelConfig, ctx: ShardCtx | None = None, *,
             return tree
         return fix(caches)
 
+    @on_mesh
     def decode_step(params, caches, tokens, positions):
         """tokens: (B,1) int32; positions: (B,) int32 write index of this
         token. Returns (logits (B,1,V), caches updated in place)."""
@@ -253,6 +284,39 @@ def build(cfg: ModelConfig, ctx: ShardCtx | None = None, *,
             return encdec_mod.encdec_init_caches(cfg, batch, max_seq, device)
         return tfm.init_caches(cfg, batch, max_seq, device)
 
+    def cache_axes():
+        if cfg.family == "hybrid":
+            return hybrid_mod.hybrid_cache_axes(cfg)
+        if cfg.family == "encdec":
+            return encdec_mod.encdec_cache_axes(cfg)
+        return tfm.cache_axes(cfg)
+
+    def input_specs(shape: ShapeSpec, device="meta"):
+        """(batch of empty tensors of the shape's global sizes on
+        ``device`` — meta, or cuda under ``FakeTensorMode`` for the dry
+        run — and their logical axes): the reference's ShapeDtypeStructs."""
+        B, S = shape.global_batch, shape.seq_len
+
+        def t(size, dtype=torch.int32):
+            return torch.empty(size, dtype=dtype, device=device)
+        if shape.kind in ("train", "prefill"):
+            batch = {"tokens": t((B, S))}
+            ax = {"tokens": axes("act_batch", "act_seq")}
+        else:  # decode: one new token
+            batch = {"tokens": t((B, 1)), "positions": t((B,))}
+            ax = {"tokens": axes("cache_batch", None),
+                  "positions": axes("cache_batch")}
+        if cfg.family == "vlm" and shape.kind != "decode":
+            batch["vision_embeds"] = t((B, cfg.vision_tokens, cfg.d_model),
+                                       dtype)
+            ax["vision_embeds"] = axes("act_batch", None, "act_embed")
+        if cfg.family == "encdec" and shape.kind != "decode":
+            batch["frames"] = t((B, cfg.encoder_frames, cfg.d_model),
+                                torch.float32)
+            ax["frames"] = axes("act_batch", None, "act_embed")
+        return batch, ax
+
     return Model(cfg=cfg, ctx=ctx, device=device, init=init, loss=loss,
                  prefill=prefill, decode_step=decode_step,
-                 init_caches=init_caches)
+                 init_caches=init_caches, param_axes=param_axes,
+                 cache_axes=cache_axes, input_specs=input_specs)

@@ -1,5 +1,5 @@
 """Mixture-of-Experts layer: top-k router + group-capacity dispatch — the
-port of ``repro.models.moe`` (single device).
+port of ``repro.models.moe``.
 
 Two grouping modes, as the reference's:
 * ``local``  (prefill): fixed groups of ``group_size`` tokens of one
@@ -14,6 +14,14 @@ in its expert's capacity in (token, choice) order — the reference's
 products are plain large products (the reference leaves them to XLA, no
 Pallas kernel): ``torch.bmm`` over the expert axis on the stored
 (E, d, f) / (E, f, d) stacks, so no copy of an expert stack is made.
+
+On a mesh (DTensors) routing and the expert products run inside
+``local_map`` on each rank's tokens (its batch block; every token for the
+global group) and its experts (``expert`` on the model axis) or its slice
+of each expert's hidden dim (``expert_mlp``), with the expert stacks
+gathered over their fsdp axis (``expert_embed``); the rank's output is a
+partial sum over the model axis, and the aux losses' sums are partial over
+the batch axes.
 """
 from __future__ import annotations
 
@@ -21,6 +29,8 @@ import math
 
 import torch
 
+from repro_torch.distributed.sharding import (_is_dtensor, mesh_axis_names,
+                                              mesh_coord, unshard_dim)
 from repro_torch.models.layers import Init, _act, mlp_apply, mlp_params
 
 
@@ -28,10 +38,10 @@ def moe_params(b: Init, cfg):
     m = cfg.moe
     d, f, E = cfg.d_model, cfg.d_ff, m.num_experts
     p = {
-        "router": b.p((d, E), scale=0.02),
-        "w_in": b.p((E, d, f)),
-        "w_gate": b.p((E, d, f)),
-        "w_out": b.p((E, f, d)),
+        "router": b.p((d, E), ("embed", "expert"), scale=0.02),
+        "w_in": b.p((E, d, f), ("expert", "expert_embed", "expert_mlp")),
+        "w_gate": b.p((E, d, f), ("expert", "expert_embed", "expert_mlp")),
+        "w_out": b.p((E, f, d), ("expert", "expert_mlp", "expert_embed")),
     }
     if m.shared_expert:
         p["shared"] = mlp_params(b, d, f, gated=True)
@@ -84,19 +94,24 @@ def _experts(p, xin, act: str):
     return torch.bmm(_act(g, act) * h, p["w_out"])
 
 
-def moe_apply(p, x, cfg, ctx, group_mode: str = "local"):
-    """x: (B,S,D) -> (y (B,S,D), aux_losses dict of scalars)."""
-    m = cfg.moe
+def _groups(x, m, group_mode: str):
+    """(B,S,D) -> (G,Sg,D): one group of every token (global), or fixed
+    groups of ``group_size`` tokens of one sequence (the whole sequence
+    when it is shorter or does not divide)."""
     B, S, D = x.shape
-    E, K = m.num_experts, m.top_k
-
     if group_mode == "global":
-        xg = x.reshape(1, B * S, D)
-    else:
-        g = min(m.group_size, S)
-        xg = x.reshape(B * (S // g), g, D) if S % g == 0 and S > g else x
-        xg = ctx.constrain(xg, "act_batch", None, "act_embed")
-    G, Sg, _ = xg.shape
+        return x.reshape(1, B * S, D)
+    g = min(m.group_size, S)
+    return x.reshape(B * (S // g), g, D) if S % g == 0 and S > g else x
+
+
+def _route_and_experts(xg, router, w, cfg, group_mode: str, e0: int = 0):
+    """Routing of the (G,Sg,D) groups over all E experts, then the
+    experts e0 ... e0 + E_loc of the stacks ``w`` (E_loc = the stacks'
+    leading dim). Returns (y (G,Sg,D), probs, idx, logits)."""
+    m = cfg.moe
+    G, Sg, D = xg.shape
+    E, K = m.num_experts, m.top_k
     C = _capacity(Sg, E, K, m.capacity_factor)
     if group_mode == "global":
         # decode: token counts are tiny — floor the capacity so collisions
@@ -104,25 +119,95 @@ def moe_apply(p, x, cfg, ctx, group_mode: str = "local"):
         C = max(C, 4)
 
     # ---- routing (f32) ----
-    logits = torch.einsum("gsd,de->gse", xg.float(), p["router"].float())
+    logits = torch.einsum("gsd,de->gse", xg.float(), router.float())
     probs, idx, _, dispatch, combine = route(logits, K, C)
 
     # ---- expert compute: (E, G*C, d) slots, one bmm per weight stack ----
+    El = w["w_in"].shape[0]
+    if El != E:
+        dispatch = dispatch[:, :, e0:e0 + El]
+        combine = combine[:, :, e0:e0 + El]
     xin = torch.einsum("gsec,gsd->egcd", dispatch.to(xg.dtype), xg)
-    out_e = _experts(p, xin.reshape(E, G * C, D), cfg.mlp_act)
-    y = torch.einsum("egcd,gsec->gsd", out_e.reshape(E, G, C, D),
+    out_e = _experts(w, xin.reshape(El, G * C, D), cfg.mlp_act)
+    y = torch.einsum("egcd,gsec->gsd", out_e.reshape(El, G, C, D),
                      combine.to(out_e.dtype))
+    return y, probs, idx, logits
+
+
+def _aux_sums(probs, idx, logits, E: int):
+    """Sums over the tokens of the router probabilities (E,), the routed
+    counts times K (E,) and the squared log-sum-exps ()."""
+    onehot = torch.nn.functional.one_hot(idx.long(), E).float()
+    return (probs.sum(dim=(0, 1)), onehot.sum(dim=2).sum(dim=(0, 1)),
+            torch.square(torch.logsumexp(logits, dim=-1)).sum())
+
+
+def _aux(sums, n: int, m):
+    """Switch load balance and router z from the sums over n tokens."""
+    me, frac, z = (t / n for t in sums)
+    lb = m.num_experts * torch.sum(me * frac) / m.top_k
+    return {"moe_lb": lb * m.router_aux_weight,
+            "moe_z": z * m.router_z_weight}
+
+
+def moe_apply(p, x, cfg, ctx, group_mode: str = "local"):
+    """x: (B,S,D) -> (y (B,S,D), aux_losses dict of scalars)."""
+    m = cfg.moe
+    B, S, D = x.shape
+    w = {k: p[k] for k in ("w_in", "w_gate", "w_out")}
+    if ctx.mesh is not None and _is_dtensor(x):
+        y, sums = _moe_on_mesh(p["router"], w, x, cfg, ctx, group_mode)
+    else:
+        xg = _groups(x, m, group_mode)
+        if group_mode != "global":
+            xg = ctx.constrain(xg, "act_batch", None, "act_embed")
+        y, probs, idx, logits = _route_and_experts(xg, p["router"], w, cfg,
+                                                   group_mode)
+        sums = _aux_sums(probs, idx, logits, m.num_experts)
     y = ctx.constrain(y.reshape(B, S, D), "act_batch", "act_seq", "act_embed")
 
     if "shared" in p:
         y = y + mlp_apply(p["shared"], x, cfg.mlp_act, gated=True, ctx=ctx)
+    return y, _aux(sums, B * S, m)
 
-    # ---- aux losses (Switch LB + router z) ----
-    onehot = torch.nn.functional.one_hot(idx.long(), E).float()
-    me = probs.mean(dim=(0, 1))                             # (E,)
-    frac = onehot.sum(dim=2).mean(dim=(0, 1))               # routed frac * K
-    lb = E * torch.sum(me * frac) / K
-    z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
-    aux = {"moe_lb": lb * m.router_aux_weight,
-           "moe_z": z * m.router_z_weight}
-    return y, aux
+
+def _moe_on_mesh(router, w, x, cfg, ctx, group_mode: str):
+    """Routing and experts on each rank's blocks (``local_map``): tokens
+    batch-sharded as x is (all of them, replicated, for the global group);
+    the router replicated; each stack's experts or hidden slice as placed,
+    gathered over its fsdp dim. Returns (y (B,S,D), aux sums) as DTensors,
+    y partial over the mesh dims that shard the experts."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = ctx.mesh
+    names = mesh_axis_names(mesh)
+    m = cfg.moe
+    rep = (Replicate(),) * mesh.ndim
+    x_pl = rep if group_mode == "global" else \
+        ctx.placements(x, "act_batch", None, "act_embed")
+    w_pl = {"w_in": unshard_dim(w["w_in"].placements, 1),
+            "w_gate": unshard_dim(w["w_gate"].placements, 1),
+            "w_out": unshard_dim(w["w_out"].placements, 2)}
+    expert_axes = [names[i] for i, pl in enumerate(w_pl["w_in"])
+                   if isinstance(pl, Shard) and pl.dim == 0]
+    split = {i for i, pl in enumerate(w_pl["w_in"]) if isinstance(pl, Shard)}
+    y_pl = tuple(Partial() if i in split else pl for i, pl in
+                 enumerate(x_pl))
+    sum_pl = tuple(Partial() if isinstance(pl, Shard) else Replicate()
+                   for pl in x_pl)
+
+    def body(xl, rl, wi, wg, wo):
+        ws = {"w_in": wi, "w_gate": wg, "w_out": wo}
+        e0 = mesh_coord(mesh, expert_axes) * wi.shape[0]
+        xg = _groups(xl, m, group_mode)
+        y, probs, idx, logits = _route_and_experts(xg, rl, ws, cfg,
+                                                   group_mode, e0)
+        return (y.reshape(xl.shape), *_aux_sums(probs, idx, logits,
+                                                m.num_experts))
+    y, *sums = local_map(
+        body, out_placements=(y_pl, sum_pl, sum_pl, sum_pl),
+        in_placements=(x_pl, rep, w_pl["w_in"], w_pl["w_gate"],
+                       w_pl["w_out"]),
+        device_mesh=mesh, redistribute_inputs=True)(
+        x, router, w["w_in"], w["w_gate"], w["w_out"])
+    return y, [t.full_tensor() for t in sums]

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan.ops import ssd
+from repro_torch.distributed.sharding import _is_dtensor, axes
 from repro_torch.models.layers import Init, rms_norm
 
 
@@ -35,19 +36,22 @@ def ssm_params(b: Init, cfg):
     d_inner, H, Pd, N = ssm_dims(cfg)
     W = cfg.ssm.conv_width
     return {
-        "wz": b.p((d, H, Pd)),
-        "wx": b.p((d, H, Pd)),
-        "wB": b.p((d, N)),
-        "wC": b.p((d, N)),
-        "wdt": b.p((d, H)),
-        "conv_x": b.p((W, H, Pd), init="uniform", scale=1.0 / math.sqrt(W)),
-        "conv_B": b.p((W, N), init="uniform", scale=1.0 / math.sqrt(W)),
-        "conv_C": b.p((W, N), init="uniform", scale=1.0 / math.sqrt(W)),
-        "A_log": b.p((H,), init="zeros"),
-        "dt_bias": b.p((H,), init="zeros"),
-        "D": b.p((H,), init="ones"),
-        "gate_norm": b.p((H, Pd), init="ones"),
-        "w_out": b.p((H, Pd, d)),
+        "wz": b.p((d, H, Pd), ("embed", "ssm_heads", "head_dim")),
+        "wx": b.p((d, H, Pd), ("embed", "ssm_heads", "head_dim")),
+        "wB": b.p((d, N), ("embed", "ssm_state")),
+        "wC": b.p((d, N), ("embed", "ssm_state")),
+        "wdt": b.p((d, H), ("embed", "ssm_heads")),
+        "conv_x": b.p((W, H, Pd), ("conv", "ssm_heads", "head_dim"),
+                       init="uniform", scale=1.0 / math.sqrt(W)),
+        "conv_B": b.p((W, N), ("conv", "ssm_state"), init="uniform",
+                      scale=1.0 / math.sqrt(W)),
+        "conv_C": b.p((W, N), ("conv", "ssm_state"), init="uniform",
+                      scale=1.0 / math.sqrt(W)),
+        "A_log": b.p((H,), ("ssm_heads",), init="zeros"),
+        "dt_bias": b.p((H,), ("ssm_heads",), init="zeros"),
+        "D": b.p((H,), ("ssm_heads",), init="ones"),
+        "gate_norm": b.p((H, Pd), ("ssm_heads", "head_dim"), init="ones"),
+        "w_out": b.p((H, Pd, d), ("ssm_heads", "head_dim", "embed")),
     }
 
 
@@ -91,6 +95,25 @@ def _dt(p, dt_raw, s):
     return torch.clamp(dt, s.dt_min, s.dt_max)
 
 
+def _ssd_on_heads(ctx, x, dt, A, Bm, Cm, *, chunk: int, plain: bool):
+    """``ssd``; on a mesh (DTensors) each rank runs it, K6 included, on its
+    shard of SSM heads (every head's scan is independent)."""
+    if ctx.mesh is None or not _is_dtensor(x):
+        return ssd(x, dt, A, Bm, Cm, chunk=chunk, plain=plain)
+    from torch.distributed.tensor.experimental import local_map
+    pl = ctx.placements
+    x_pl = pl(x, "act_batch", None, "act_heads", None)
+    st_pl = pl(x.new_empty((x.shape[0], x.shape[2], 1, 1)), "act_batch",
+               "act_heads")
+    return local_map(
+        lambda *a: ssd(*a, chunk=chunk, plain=plain),
+        out_placements=(x_pl, st_pl),
+        in_placements=(x_pl, pl(dt, "act_batch", None, "act_heads"),
+                       pl(A, "act_heads"), pl(Bm, "act_batch"),
+                       pl(Cm, "act_batch")),
+        device_mesh=ctx.mesh, redistribute_inputs=True)(x, dt, A, Bm, Cm)
+
+
 def ssm_block(p, u, cfg, ctx, *, return_state: bool = False,
               plain: bool = False):
     """Full mamba2 block forward (prefill). u: (B,S,d) -> (B,S,d).
@@ -105,8 +128,8 @@ def ssm_block(p, u, cfg, ctx, *, return_state: bool = False,
     Bm = F.silu(_causal_conv(Bm, p["conv_B"]))
     Cm = F.silu(_causal_conv(Cm, p["conv_C"]))
     A = -torch.exp(p["A_log"].float())
-    y, st_final = ssd(x.float(), _dt(p, dt, s), A, Bm.float(), Cm.float(),
-                      chunk=s.chunk_size, plain=plain)
+    y, st_final = _ssd_on_heads(ctx, x.float(), _dt(p, dt, s), A, Bm.float(),
+                                Cm.float(), chunk=s.chunk_size, plain=plain)
     y = y + p["D"].float()[None, None, :, None] * x.float()
     y = y.to(u.dtype) * F.silu(z)
     y = rms_norm(y, p["gate_norm"], cfg.norm_eps)
@@ -135,6 +158,15 @@ def ssm_init_state(cfg, batch, device):
         "conv_x": torch.zeros((batch, W - 1, H, Pd), **f32),
         "conv_B": torch.zeros((batch, W - 1, N), **f32),
         "conv_C": torch.zeros((batch, W - 1, N), **f32),
+    }
+
+
+def ssm_state_axes(cfg):
+    return {
+        "ssd": axes("cache_batch", "ssm_heads", None, None),
+        "conv_x": axes("cache_batch", None, "ssm_heads", None),
+        "conv_B": axes("cache_batch", None, None),
+        "conv_C": axes("cache_batch", None, None),
     }
 
 

@@ -30,6 +30,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.core.persistent import tree_leaves, tree_map
+from repro_torch.distributed.sharding import axes
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -75,16 +76,16 @@ def layer_params(b: Init, cfg, kind: str):
     d = cfg.d_model
     p: dict[str, Any] = {}
     if kind == "ssm":
-        p["ln"] = b.p((d,), init="ones")
+        p["ln"] = b.p((d,), ("embed",), init="ones")
         p["ssm"] = ssm_mod.ssm_params(b, cfg)
         return p
-    p["ln_attn"] = b.p((d,), init="ones")
+    p["ln_attn"] = b.p((d,), ("embed",), init="ones")
     p["attn"] = attn.attn_params(b, d, cfg.num_heads, cfg.num_kv_heads,
                                  cfg.resolved_head_dim, cfg.qkv_bias)
-    p["ln_mlp"] = b.p((d,), init="ones")
+    p["ln_mlp"] = b.p((d,), ("embed",), init="ones")
     if cfg.sandwich_norm:
-        p["ln_attn_post"] = b.p((d,), init="ones")
-        p["ln_mlp_post"] = b.p((d,), init="ones")
+        p["ln_attn_post"] = b.p((d,), ("embed",), init="ones")
+        p["ln_mlp_post"] = b.p((d,), ("embed",), init="ones")
     if kind == "attn_moe":
         p["moe"] = moe_mod.moe_params(b, cfg)
     else:
@@ -106,8 +107,8 @@ def _attn_sub(p, x, cfg, ctx, *, local: bool, mode: str, pos,
         # flash-decode against it
         kc, vc = attn.cache_update_sharded(cache["k"], cache["v"], k, v,
                                            pos[:, 0], ctx)
-        o = attn.decode_attention_local(
-            q, kc, vc, valid_len, attn_softcap=cfg.attn_softcap,
+        o = attn.decode_attention_sharded(
+            q, kc, vc, valid_len, ctx, attn_softcap=cfg.attn_softcap,
             window=window, plain=plain)
         new_cache = {"k": kc, "v": vc}
     else:
@@ -297,3 +298,22 @@ def init_caches(cfg, batch: int, max_seq: int, device):
                                  device=device),
             }
     return caches
+
+
+def stacked_axes(tree):
+    """An Axes tree under a leading "layers" axis."""
+    return tree_map(lambda a: axes("layers", *a.names), tree)
+
+
+KV_CACHE_AXES = axes("layers", "cache_batch", "cache_seq", "cache_heads", None)
+
+
+def cache_axes(cfg):
+    spec = period_spec(cfg)
+    out = {}
+    for i, (kind, _) in enumerate(spec):
+        if kind == "ssm":
+            out[f"blk{i}"] = stacked_axes(ssm_mod.ssm_state_axes(cfg))
+        else:
+            out[f"blk{i}"] = {"k": KV_CACHE_AXES, "v": KV_CACHE_AXES}
+    return out

@@ -157,6 +157,19 @@ def adamw_init(cfg: AdamWConfig, params):
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def adamw_state_axes(cfg: AdamWConfig, param_axes):
+    """Optimizer-state logical axes mirroring the parameter axes: 8-bit
+    state (and its scales) take its parameter's axes, the divisibility
+    fallback trimming the shrunken last dim where needed."""
+    from repro_torch.distributed.sharding import axes
+    if cfg.eightbit:
+        mv = tree_map(lambda a: {"m_q": a, "m_s": a, "v_q": a, "v_s": a},
+                      param_axes)
+    else:
+        mv = {"m": param_axes, "v": param_axes}
+    return {"mv": mv, "step": axes()}
+
+
 def _adamw_update_leaf(cfg, p, g, m, v, step, lr):
     g32 = g.float()
     m = cfg.b1 * m + (1 - cfg.b1) * g32

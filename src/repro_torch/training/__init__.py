@@ -1,2 +1,3 @@
-from repro_torch.training.train_loop import (init_state, make_train_step,
-                                             opt_config_for)
+from repro_torch.training.train_loop import (abstract_state, init_state,
+                                             make_train_step, opt_config_for,
+                                             state_axes, state_shardings)

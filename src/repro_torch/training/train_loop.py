@@ -8,16 +8,20 @@ parameters' dtype, as JAX's do; with ``accum_steps > 1`` they are summed
 in ``cfg.accum_dtype`` and scaled by 1/accum, and the metrics averaged.
 ``donate=True`` lets the update write into the given state (the
 reference's launcher donates it to its jitted step); the returned values
-are the same. The sharded state specs (``state_axes``,
-``state_shardings``, ``abstract_state``) wait for the distribution slice.
+are the same. ``state_axes``, ``state_shardings`` and ``abstract_state``
+give the state's logical axes, its Shardings on a mesh and, under
+``FakeTensorMode``, its shapes as fake DTensors (the dry run's); running the
+step on a mesh is not ported yet.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.persistent import tree_leaves, tree_map
+from repro_torch.distributed.sharding import ShardCtx, attach_shardings
 from repro_torch.optim.optimizer import (AdamWConfig, adamw_init,
-                                         adamw_update, make_optimizer)
+                                         adamw_state_axes, adamw_update,
+                                         make_optimizer)
 
 
 def _value_and_grad(loss_fn, params, batch):
@@ -84,3 +88,30 @@ def init_state(model, opt_cfg: AdamWConfig, seed: int):
     state)."""
     params = model.init(seed)
     return params, adamw_init(opt_cfg, params)
+
+
+def state_axes(model, opt_cfg: AdamWConfig):
+    p_axes = model.param_axes()
+    return p_axes, adamw_state_axes(opt_cfg, p_axes)
+
+
+def state_shardings(model, opt_cfg: AdamWConfig, ctx: ShardCtx,
+                    params_shape=None, opt_shape=None):
+    p_axes, o_axes = state_axes(model, opt_cfg)
+    return (ctx.tree_shardings(p_axes, params_shape),
+            ctx.tree_shardings(o_axes, opt_shape))
+
+
+def abstract_state(model, opt_cfg: AdamWConfig, ctx: ShardCtx):
+    """Params and optimizer state as fake tensors (DTensors of their
+    Shardings on a mesh) on the model's device: the port's
+    ``jax.eval_shape`` of the reference's ``abstract_state``. Nothing is
+    drawn or allocated."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch._guards import detect_fake_mode
+    mode = detect_fake_mode() or FakeTensorMode()
+    with mode:
+        params = model.init(0)
+        opt = adamw_init(opt_cfg, params)
+        p_sh, o_sh = state_shardings(model, opt_cfg, ctx, params, opt)
+        return attach_shardings(params, p_sh), attach_shardings(opt, o_sh)

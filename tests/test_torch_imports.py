@@ -50,7 +50,8 @@ def test_port_imports_neither_jax_nor_reference():
               "configs.grok1_314b", "configs.internvl2_76b",
               "optim.optimizer", "data.pipeline", "checkpoint.checkpoint",
               "training.train_loop", "distributed.fault_tolerance",
-              "launch.train"):
+              "launch.train", "distributed.sharding", "launch.mesh",
+              "launch.dryrun", "launch.roofline"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -168,6 +169,12 @@ def test_entry_points_raise_without_cuda():
         build(cfg, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         build(cfg)                                   # the default is cuda
+
+    class Mesh:                                     # a (2, 4) mesh's shape
+        mesh_dim_names, shape = ("data", "model"), (2, 4)
+    from repro_torch.distributed.sharding import ShardCtx
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build(cfg, ShardCtx.for_mesh(Mesh(), "decode"), device="cuda")
     for arch in ("mamba2-780m", "zamba2-7b", "whisper-tiny",
                  "llama4-maverick-400b-a17b", "grok-1-314b", "internvl2-76b"):
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -208,17 +215,11 @@ def test_entry_points_raise_without_cuda():
 # are the functions and classes it defines. The port must offer each,
 # except the TPU entry point and what the roadmap still queues.
 NOT_PORTED = {"persistent_drain_pallas",      # the Pallas TPU launch
-              "make_cluster_mesh",            # the distribution slice
-              # the cache trees' logical axes: the distribution slice
-              "hybrid_cache_axes", "encdec_cache_axes",
+              "make_cluster_mesh",            # training on a mesh: slice 13
               # the reference's parameter factory class: the port's
               # models.layers.Init draws the same scales from a
-              # torch.Generator; its logical-axes mode waits for the
-              # distribution slice
-              "Builder",
-              # the sharded state specs: the distribution slice
-              "adamw_state_axes", "state_axes", "state_shardings",
-              "abstract_state"}
+              # torch.Generator, and Init.axes_mode() is its "axes" mode
+              "Builder"}
 
 
 @pytest.mark.parametrize("name", [
@@ -228,6 +229,8 @@ NOT_PORTED = {"persistent_drain_pallas",      # the Pallas TPU launch
     "repro.models.hybrid", "repro.models.encdec", "repro.models.layers",
     "repro.models.moe", "repro.optim", "repro.optim.optimizer", "repro.data",
     "repro.checkpoint", "repro.training", "repro.distributed.fault_tolerance",
+    "repro.distributed", "repro.distributed.sharding", "repro.launch.mesh",
+    "repro.launch.roofline",
 ])
 def test_reference_public_names_importable_from_port(name):
     import importlib

@@ -17,8 +17,10 @@ import torch
 import repro_torch.kernels.persistent as P
 from repro_torch.kernels.persistent import kernel as PK
 from repro_torch.core import mailbox as mb
-from repro_torch.kernels.decode_attention import (decode_attention,
-                                                  decode_attention_plain)
+from repro_torch.kernels.decode_attention import (
+    decode_attention, decode_attention_partial,
+    decode_attention_partial_plain, decode_attention_plain,
+    merge_decode_partials)
 from repro_torch.kernels.decode_attention import kernel as DK
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
@@ -28,6 +30,10 @@ from repro_torch.kernels.ssd_scan import (ssd, ssd_chunk, ssd_chunk_plain,
 from repro_torch.kernels.ssd_scan import kernel as SK
 
 BF16_ATOL = 2e-2
+# a shard partial's lse: f32 on both sides from the same inputs, so held
+# to f32 summation order in every dtype (one key lost at a shard boundary
+# moves it by about 1 / live keys)
+LSE_ATOL = 1e-4
 
 
 def _qkv(seed, B, S, Hq, Hkv, D, Sq=None):
@@ -272,6 +278,79 @@ def test_decode_kernel_matches_plain_on_card(cuda, B, S, Hq, Hkv, D, dtype,
     atol = BF16_ATOL if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
     _assert_softcap_matters(decode_attention_plain, (q, k, v, vl), kw, atol)
+
+
+# K4's shard mode: the cache cut into n sequence shards, each shard's
+# partial (o, lse) from the kernel, merged; every head dim and group size
+# the kernel has, shards past the live keys (empty), windows across shard
+# boundaries, a softcap
+GPU_DECODE_SHARDS = [
+    # (B, S, Hq, Hkv, D, dtype, valid, n_shards, kwargs)
+    (4, 4096, 32, 8, 128, torch.bfloat16, [3, 1000, 2049, 4096], 4, {}),
+    (4, 4096, 32, 8, 128, torch.bfloat16, [3, 1000, 2049, 4096], 16, {}),
+    (1, 4608, 8, 4, 256, torch.bfloat16, [4600], 2,
+     dict(window=4096, attn_softcap=50.0)),
+    (2, 1024, 32, 32, 112, torch.bfloat16, [1024, 300], 4, dict(window=500)),
+    (2, 512, 4, 2, 32, torch.bfloat16, [512, 77], 4, {}),
+    (2, 512, 4, 2, 32, torch.float32, [512, 77], 4,
+     dict(window=100, attn_softcap=30.0)),
+    (2, 512, 16, 2, 64, torch.bfloat16, [512, 130], 8, {}),
+    (2, 384, 8, 8, 64, torch.float32, [384, 5], 3, {}),
+    (2, 256, 16, 2, 128, torch.float32, [256, 100], 2, {}),
+    (2, 256, 8, 1, 256, torch.float32, [256, 200], 2, dict(window=64)),
+    (2, 256, 8, 1, 112, torch.float32, [256, 31], 4, {}),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,dtype,valid,n,kw", GPU_DECODE_SHARDS)
+def test_decode_shard_mode_matches_plain_on_card(cuda, B, S, Hq, Hkv, D,
+                                                 dtype, valid, n, kw):
+    q, k, v = _qkv(9, B, S, Hq, Hkv, D, Sq=1)
+    q, k, v = [t.to(cuda, dtype) for t in _t(_capped(q, kw), k, v)]
+    vl = torch.tensor(valid, dtype=torch.int32, device=cuda)
+    L = S // n
+    atol = BF16_ATOL if dtype == torch.bfloat16 else 1e-4
+    before = decode_attention_partial.launches
+    os_, lses = [], []
+    for i in range(n):
+        ks, vs = k[:, i * L:(i + 1) * L].contiguous(), \
+            v[:, i * L:(i + 1) * L].contiguous()
+        o, lse = decode_attention_partial(q, ks, vs, vl, off=i * L,
+                                          seq_len=S, **kw)
+        po, plse = decode_attention_partial_plain(q, ks, vs, vl, off=i * L,
+                                                  seq_len=S, **kw)
+        torch.testing.assert_close(o.float(), po.float(), atol=atol, rtol=0)
+        assert torch.equal(torch.isinf(lse), torch.isinf(plse))
+        live = torch.isfinite(plse)
+        torch.testing.assert_close(lse[live], plse[live], atol=LSE_ATOL,
+                                   rtol=0)
+        os_.append(o)
+        lses.append(lse)
+    torch.cuda.synchronize()
+    assert decode_attention_partial.launches == before + n
+    got = merge_decode_partials(os_, lses)
+    want = decode_attention_plain(q, k, v, vl, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    whole = decode_attention(q, k, v, vl, **kw)
+    torch.testing.assert_close(got.float(), whole.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_shard_mode_empty_shard_on_card(cuda, dtype):
+    """A shard wholly past the live keys (and one before a window) writes
+    o = 0 and lse = -inf; valid_len 0 is allowed in this mode."""
+    q, k, v = [t.to(cuda, dtype) for t in _t(*_qkv(10, 3, 256, 32, 8, 128,
+                                                   Sq=1))]
+    vl = torch.tensor([0, 100, 256], dtype=torch.int32, device=cuda)
+    o, lse = decode_attention_partial(q, k[:, 128:].contiguous(),
+                                      v[:, 128:].contiguous(), vl, off=128,
+                                      seq_len=256, window=64)
+    torch.cuda.synchronize()
+    assert torch.isinf(lse[:2]).all() and (lse[:2] < 0).all()
+    assert torch.equal(o[:2].float(), torch.zeros_like(o[:2].float()))
+    assert torch.isfinite(lse[2]).all()
 
 
 @pytest.mark.gpu

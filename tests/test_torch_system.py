@@ -174,9 +174,9 @@ def test_cluster_manager_matches_reference():
     assert got == carve_script(REF)
     assert got[0][3] and got[0][4] == pytest.approx(8 / 9)
     assert not got[3][3]                      # one device carved three ways
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(NotImplementedError, match="slice 13"):
         t_clusters.make_cluster_mesh(devs(2))
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(NotImplementedError, match="slice 13"):
         make_system(PORT, devices=devs(2),
                     state_shardings_factory=lambda cl: None)
 
