@@ -140,6 +140,22 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    device-busy share; then the dry run on this host (llama3-8b's inference
    cells on the 16x16 mesh, mamba2-780m's long_500k on both meshes: fake
    tensors, a fake 512-rank group) and its roofline rows;
+4j. training on a mesh, over a one-rank NCCL group on a (1, 1) ('data',
+   'model') mesh: reduced llama3-8b (f32, TF32 off) for 3 steps through
+   ``launch.train.main(..., mesh=)`` against the single path from the same
+   parameters and batches (loss within 1e-5 relative, parameters within
+   1e-4, elements whose clipped gradient is near AdamW's eps within 2 lr a
+   step); a checkpoint saved on the mesh at step 2, restored with
+   ``shardings=`` from the state's placements (sha256 equal to the
+   manifest's), and a resume whose step-3 loss is within 1e-5 of the run
+   without a break; llama3-8b at full width with 8 of 32 layers (bf16) for
+   10 steps (finite losses, the mean of the last three below the first),
+   its step time beside phase 4h's single path in this call, one profiled
+   step's device-busy share and the peak memory; K4/K5/K6 launched 0
+   times in every meshed train run; ``LkSystem(state_shardings_factory=)``
+   on two clusters, each a mesh over rank 0, against the same system
+   without shardings (results equal, ``met == n``); then the dry run's
+   train_4k for llama3-8b on the 16x16 mesh and its roofline row;
 5. tile kernels: the drain megakernel (K1), its flight-recorder variant
    (K2) and the legacy executor (K3) against their plain versions at
    C = 132 clusters (one worker per SM), Q = 64 rows, nbuf = 8 tiles, on a
@@ -1782,8 +1798,9 @@ class _Tee:
         self.out.flush()
 
 
-def train_run(label: str, argv: list, cfg=None) -> dict:
-    """``launch.train.main(argv, cfg=cfg)`` with every launch counter
+def train_run(label: str, argv: list, cfg=None, mesh=None) -> dict:
+    """``launch.train.main(argv, cfg=cfg, mesh=mesh)`` with every launch
+    counter
     zeroed before and read after (all must stay 0: no kernel has a
     backward) and the plain attention/SSD calls counted. Returns the
     logged steps, the final metrics, the launches, the plain calls and the
@@ -1793,7 +1810,7 @@ def train_run(label: str, argv: list, cfg=None) -> dict:
     tee = _Tee(sys.stdout)
     with plain_calls() as plain, contextlib.redirect_stdout(tee):
         zero_launches()
-        metrics = train_cli.main(argv, cfg=cfg)
+        metrics = train_cli.main(argv, cfg=cfg, mesh=mesh)
         torch.cuda.synchronize()
         launches = read_launches()
     steps = [dict(step=int(m[1]), loss=float(m[2]), ce=float(m[3]),
@@ -2363,7 +2380,8 @@ def dryrun_cells() -> dict:
     shutil.rmtree(out_dir, ignore_errors=True)
     env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
     recs = {}
-    for args in (["--arch", "llama3-8b", "--mesh", "pod"],
+    for args in (["--arch", "llama3-8b", "--shape", "prefill_32k",
+                  "decode_32k", "long_500k", "--mesh", "pod"],
                  ["--arch", "mamba2-780m", "--shape", "long_500k", "--mesh",
                   "both"]):
         t0 = time.perf_counter()
@@ -2412,6 +2430,321 @@ def mesh_phase() -> dict:
     out = dict(shards=shard_mode_checks(), model=meshed_model_run(),
                dryrun=dryrun_cells())
     log(f"mesh phase {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4j: training on a mesh, cluster meshes, the dry run's train_4k
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_LR = 1e-3        # the reduced meshed-vs-single check's lr
+
+
+def _ckpt_arrays(path: Path, step: int) -> dict:
+    with np.load(path / f"step_{step:010d}" / "arrays.npz") as data:
+        return {k: data[k] for k in data.files}
+
+
+def mesh_train_reduced(mesh) -> dict:
+    """Reduced llama3-8b (f32, TF32 off), 3 steps through
+    ``launch.train.main`` on the (1, 1) mesh and through the single path,
+    from the same seed-0 parameters and batches: the last loss within
+    CARD_CPU_LOSS_RTOL relative, every logged loss equal, parameters (the
+    step-3 checkpoints) within CARD_CPU_PARAM_ATOL; elements whose clipped
+    gradient (a replay of the single path's steps) was under ADAM_ILL eps
+    but not 0 at some step held to 2 lr a step."""
+    from repro_torch.data import DataConfig, ShardedLoader, SyntheticLM
+    from repro_torch.optim.optimizer import (clip_by_global_norm,
+                                             cosine_schedule)
+    root = OUT / "mesh_train"
+    shutil.rmtree(root, ignore_errors=True)
+    steps, B, S = 3, 4, 64
+    argv = ["--arch", "llama3-8b", "--reduced", "--steps", str(steps),
+            "--batch", str(B), "--seq", str(S), "--log-every", "1",
+            "--lr", str(MESH_TRAIN_LR), "--ckpt-every", "100"]
+    meshed = train_run("mesh reduced", argv + ["--ckpt-dir",
+                                               str(root / "mesh")],
+                       mesh=mesh)
+    single = train_run("single reduced", argv + ["--ckpt-dir",
+                                                 str(root / "single")])
+    _need_plain("mesh reduced", "dense", meshed["plain"])
+    # the single path's steps replayed for the near-eps gradients
+    cfg = get_config("llama3-8b").reduced()
+    model = build(cfg, device="cuda")
+    ocfg = opt_config_for(cfg, lr=cosine_schedule(MESH_TRAIN_LR,
+                                                  steps // 10, steps))
+    params, opt = init_state(model, ocfg, 0)
+    step = make_train_step(model, ocfg, donate=True)
+    loader = ShardedLoader(SyntheticLM(cfg.vocab_size, seed=0),
+                           DataConfig(global_batch=B, seq_len=S),
+                           device="cuda")
+    names = [n for n, _ in _flatten_with_names({"params": params})]
+    ill = {n: torch.zeros(t.shape, dtype=torch.bool, device="cuda")
+           for n, t in _flatten_with_names({"params": params})}
+    for i in range(steps):
+        batch = loader.device_batch(i)
+        grads, _ = _value_and_grad(model.loss, params, batch)
+        clipped, _ = clip_by_global_norm(grads, ocfg.max_grad_norm)
+        for n, g in _flatten_with_names({"params": clipped}):
+            ill[n] |= (g != 0) & (g.abs() < ADAM_ILL * ocfg.eps)
+        params, opt, _ = step(params, opt, batch)
+    a = _ckpt_arrays(root / "mesh", steps)
+    b = _ckpt_arrays(root / "single", steps)
+    worst_p = worst_ill = 0.0
+    n_ill = 0
+    for n in names:
+        m = ill[n].cpu().numpy()
+        d = np.abs(a[n] - b[n])
+        if (~m).any():
+            worst_p = max(worst_p, float(d[~m].max()))
+        if m.any():
+            worst_ill = max(worst_ill, float(d[m].max()))
+            n_ill += int(m.sum())
+    la, lb = meshed["metrics"]["loss"], single["metrics"]["loss"]
+    rel = abs(la - lb) / abs(lb)
+    logged = [s["loss"] for s in meshed["steps"]] == \
+        [s["loss"] for s in single["steps"]]
+    ill_bound = 2 * MESH_TRAIN_LR * steps
+    log(f"mesh train[reduced llama3-8b, (1, 1) mesh vs single, {steps} "
+        f"steps, f32, TF32 off]: last loss {la!r} vs {lb!r} (rel "
+        f"{rel:.3g}, tolerance {CARD_CPU_LOSS_RTOL}); logged losses equal "
+        f"{logged}; params max abs diff {worst_p:.3g} (tolerance "
+        f"{CARD_CPU_PARAM_ATOL}); {n_ill} near-eps elements: max abs diff "
+        f"{worst_ill:.3g} (bound {ill_bound}); launches "
+        f"{meshed['launches']}; plain calls {meshed['plain']}")
+    if rel > CARD_CPU_LOSS_RTOL or not logged or \
+            worst_p > CARD_CPU_PARAM_ATOL or worst_ill > ill_bound or \
+            set(names) - set(a):
+        raise SystemExit("mesh train[reduced]: the meshed train step "
+                         "disagrees with the single path")
+    del params, opt, grads, clipped
+    _free()
+    return dict(loss_rel=rel, param_abs=worst_p, ill_elements=n_ill,
+                ill_param_abs=worst_ill, launches=meshed["launches"])
+
+
+def mesh_train_ckpt(mesh) -> dict:
+    """Reduced llama3-8b on the (1, 1) mesh, 4 steps, a checkpoint every 2;
+    ``step_2`` restored with ``shardings=`` from the placed state's
+    placements (DTensors on them, sha256 of each gathered tensor equal to
+    the manifest's), then a resume from ``step_2`` alone: step 3's loss
+    within RESUME_TOL of the run without a break."""
+    from repro_torch.distributed.sharding import ShardCtx, Sharding
+    from repro_torch.training import place_state
+    from torch.distributed.tensor import DTensor
+    root = OUT / "mesh_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    base = ["--arch", "llama3-8b", "--reduced", "--steps", "4", "--batch",
+            "4", "--seq", "64", "--log-every", "1", "--ckpt-every", "2"]
+    full = train_run("mesh ckpt", base + ["--ckpt-dir", str(root / "full")],
+                     mesh=mesh)
+    if CheckpointManager(str(root / "full")).all_steps() != [2, 4]:
+        raise SystemExit("mesh train[ckpt]: checkpoints are not [2, 4]")
+    shutil.copytree(root / "full" / "step_0000000002",
+                    root / "resume" / "step_0000000002")
+    cfg = get_config("llama3-8b").reduced()
+    ctx = ShardCtx.for_mesh(mesh, "train")
+    model = build(cfg, ctx, device="cuda")
+    ocfg = opt_config_for(cfg)
+    params, opt = place_state(model, ocfg, ctx,
+                              *init_state(model, ocfg, 0))
+    tpl = {"params": params, "opt": opt}
+    shardings = tree_map(
+        lambda t: Sharding(mesh, (), tuple(t.placements)), tpl)
+    cm = CheckpointManager(str(root / "resume"))
+    back = cm.restore(2, tpl, shardings=shardings)
+    entries = cm.manifest(2)["entries"]
+    named = _flatten_with_names(back)
+    bad = [n for n, t in named
+           if not isinstance(t, DTensor)
+           or _sha256(_to_storable(t.full_tensor())[0])
+           != entries[n]["sha256"] or t.to_local().device.type != "cuda"]
+    if bad or len(named) != len(entries):
+        raise SystemExit(f"mesh train[ckpt]: restored tensors differ from "
+                         f"the saved ones: {bad[:5]}")
+    del params, opt, back, tpl
+    resumed = train_run("mesh resume", base + ["--ckpt-dir",
+                                               str(root / "resume"),
+                                               "--resume"], mesh=mesh)
+    a, b = full["metrics"]["loss"], resumed["metrics"]["loss"]
+    log(f"mesh train[ckpt] saved on the (1, 1) mesh at steps 2 and 4; "
+        f"{len(named)} DTensors restored with shardings=, sha256 equal to "
+        f"the manifest; step 3 loss uninterrupted {a!r} resumed {b!r} "
+        f"(|diff| {abs(a - b):.3g}, tolerance {RESUME_TOL})")
+    if abs(a - b) > RESUME_TOL or [s["step"] for s in resumed["steps"]] \
+            != [2, 3]:
+        raise SystemExit(f"mesh train[ckpt]: step 3 loss {b} vs {a}")
+    _free()
+    return dict(tensors=len(named), loss=a, resumed_loss=b)
+
+
+def mesh_train_full(mesh, single: dict, smi: str) -> dict:
+    """llama3-8b at full width, 8 of 32 layers (bf16, as phase 4h), 10
+    steps through ``main(..., mesh=)`` on the (1, 1) mesh (finite losses,
+    the mean of the last three below the first; K4/K5/K6 0 launches),
+    then one profiled meshed step's device-busy share; the single path's
+    numbers are phase 4h's in this call."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.distributed.sharding import ShardCtx
+    from repro_torch.training import place_state
+    layers = 8
+    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=layers)
+    label = f"llama3-8b {layers}L mesh"
+    r = train_run(label, TRAIN_FULL + ["--lr", "3e-4"], cfg=cfg, mesh=mesh)
+    _need_plain(label, cfg.family, r["plain"])
+    losses = [st["loss"] for st in r["steps"]]
+    if not sum(losses[-3:]) / 3 < losses[0]:
+        raise SystemExit(f"mesh train[{label}]: mean of the last three "
+                         f"losses not below the first: {losses}")
+    _free()
+    ctx = ShardCtx.for_mesh(mesh, "train")
+    model = build(cfg, ctx, device="cuda")
+    ocfg = opt_config_for(cfg, lr=3e-4)
+    params, opt = place_state(model, ocfg, ctx, *init_state(model, ocfg, 0))
+    step = make_train_step(model, ocfg, donate=True)
+    gen = np.random.default_rng(0)
+    tokens = torch.from_numpy(gen.integers(
+        0, cfg.vocab_size, (8, 256)).astype(np.int32)).cuda()
+    batch = ctx.distribute({"tokens": tokens}, {"tokens": model.input_specs(
+        SHAPES["train_4k"])[1]["tokens"]})
+    for _ in range(2):
+        params, opt, m = step(params, opt, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, busy = busy_share(prof, "")
+    del params, opt, m, batch
+    _free()
+    step_ms = [st["step_ms"] for st in r["steps"]]
+    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    log(f"mesh train[{label}] losses {losses}")
+    log(f"mesh train[{label}] step host ms {[round(x, 2) for x in step_ms]} "
+        f"(median of steps 1+ {steady:.2f} ms) against the single path's "
+        f"{single['steady_step_ms']:.2f} ms (phase 4h, this call; ratio "
+        f"{steady / single['steady_step_ms']:.2f}); profiled meshed step "
+        f"{prof_ms:.2f} ms, device busy {busy_ms:.2f} ms, share {busy:.3f} "
+        f"(single {single['busy_share']:.3f}); peak memory "
+        f"{r['peak_gib']:.2f} GiB (single {single['peak_gib']:.2f}); "
+        f"launches {r['launches']} | {smi}")
+    return dict(layers=layers, losses=losses, step_ms=step_ms,
+                steady_step_ms=steady, single_steady_step_ms=single[
+                    "steady_step_ms"], busy_share=busy, busy_ms=busy_ms,
+                profiled_step_ms=prof_ms, peak_gib=r["peak_gib"],
+                launches=r["launches"])
+
+
+def cluster_mesh_run() -> dict:
+    """``LkSystem`` on [cuda] x 2 clusters, each a mesh over rank 0, with
+    ``state_shardings_factory`` (state as DTensors on its cluster's mesh)
+    and without: two classes pinned one a cluster, 4 items each; results
+    equal, ``met == n`` on both; rank 0 drives both clusters, so it runs
+    both pinned classes."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.core.system import WorkClass
+    from repro_torch.distributed.sharding import Sharding, spec_to_placements
+
+    def fn(state, desc):
+        state = dict(state)
+        state["x"] = state["x"] + 1.0
+        return state, state["x"].sum()[None]
+
+    def shard(cl):
+        return {"x": Sharding(cl.mesh, ("data",),
+                              spec_to_placements(("data",), cl.mesh))}
+    runs = {}
+    for label, factory in (("sharded", shard), ("plain", None)):
+        sys_ = LkSystem(
+            devices=[torch.device("cuda")] * 2, n_clusters=2,
+            axis_names=("data",),
+            state_factory=lambda cl: {"x": torch.zeros(
+                1024, device="cuda")},
+            result_template=torch.zeros(1, device="cuda"),
+            state_shardings_factory=factory,
+            work_classes=[WorkClass("w0", fn=fn, pin=0),
+                          WorkClass("w1", fn=fn, pin=1)])
+        with sys_:
+            meshes = [rt.state["x"].device_mesh if isinstance(
+                rt.state["x"], DTensor) else None
+                for rt in sys_.runtimes.values()]
+            driven = [sys_.drives_class(c) for c in ("w0", "w1")]
+            tickets = [sys_.submit(c) for _ in range(4)
+                       for c in ("w0", "w1")]
+            res = [float(t.result()[0]) for t in tickets]
+            st = sys_.stats()
+        runs[label] = dict(results=res, met=st["met"], n=st["n"],
+                           dtensor=[m is not None for m in meshes],
+                           driven=driven)
+    ok = runs["sharded"]["results"] == runs["plain"]["results"] and \
+        all(r["met"] == r["n"] == 8 for r in runs.values()) and \
+        all(runs["sharded"]["dtensor"]) and not any(runs["plain"]["dtensor"]) \
+        and all(runs["sharded"]["driven"])
+    log(f"cluster meshes: LkSystem 2 clusters on [cuda] x 2, each a mesh "
+        f"over rank 0: sharded results {runs['sharded']['results']} plain "
+        f"{runs['plain']['results']}; met/n {runs['sharded']['met']}/"
+        f"{runs['sharded']['n']} and {runs['plain']['met']}/"
+        f"{runs['plain']['n']}; state DTensors {runs['sharded']['dtensor']}")
+    if not ok:
+        raise SystemExit(f"cluster meshes: {runs}")
+    return runs
+
+
+def dryrun_train_cell(smi: str) -> dict:
+    """The dry run's train_4k for llama3-8b on the (16, 16) mesh (fake
+    tensors, a fake 512-rank group: host work) and its roofline row."""
+    out_dir = ROOT / "build" / "chip_smoke" / "dryrun_train"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "llama3-8b", "--shape", "train_4k", "--mesh", "pod", "--out",
+         str(out_dir)], env=env, capture_output=True, text=True,
+        timeout=300)
+    for line in res.stdout.splitlines():
+        log(line)
+    took = time.perf_counter() - t0
+    rec = json.loads((out_dir / "llama3-8b__train_4k__16x16.json")
+                     .read_text())
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.roofline", "--results",
+         str(out_dir)], env=env, capture_output=True, text=True, timeout=120)
+    if res.returncode or rec["status"] != "OK":
+        raise SystemExit(f"dry run train_4k: {rec['status']} "
+                         f"{rec.get('traceback', '')} {res.stderr[-2000:]}")
+    for line in res.stdout.splitlines():
+        if line.strip():
+            log(f"roofline {line}")
+    log(f"dry run train_4k llama3-8b 16x16: {took:.1f}s | {smi}")
+    return {k: rec.get(k) for k in ("status", "memory", "collectives",
+                                    "timing", "cost")}
+
+
+def mesh_train_phase(smi: str, single: dict) -> dict:
+    """Phase 4j over a one-rank NCCL group (as phase 4i starts it)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.HashStore(),
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_host_mesh()
+        out = dict(reduced=mesh_train_reduced(mesh),
+                   ckpt=mesh_train_ckpt(mesh),
+                   full=mesh_train_full(mesh, single, smi),
+                   clusters=cluster_mesh_run())
+    finally:
+        dist.destroy_process_group()
+    out["dryrun"] = dryrun_train_cell(smi)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"mesh train phase {out['seconds']:.1f}s | {smi}")
     return out
 
 
@@ -3024,6 +3357,7 @@ def main(argv=None) -> int:
     smoke = smoke_phase()
     training = train_phase(smi)
     mesh = mesh_phase()
+    mesh_train_phase(smi, training["llama3_8b_8_layers"])
     new_runs = {k: v for phase in (hybrid, encdec, moe_vlm)
                 for k, v in phase.items() if k.endswith("_prefill")}
     new_runs.update({f"smoke_{arch.replace('-', '_')}": launched

@@ -18,9 +18,18 @@ Layout:  <dir>/step_<N>/
   then update its tensors in place), writes on a daemon thread, and
   raises a write error at ``wait``.
 
-``restore`` puts each leaf on its template leaf's device and dtype. Its
-``shardings`` argument (restore onto another mesh) comes with training on
-a mesh (slice 13).
+``restore`` puts each leaf on its template leaf's device and dtype.
+
+On a mesh (DTensor leaves) ``save`` / ``save_async`` gather each leaf
+with ``full_tensor()`` in the synchronous snapshot, on every rank of the
+leaves' mesh (a collective); the rank at the mesh's origin writes and the
+ranks meet at a barrier over the mesh, so the files, names and sha256 are
+those of a single-device save of the same values. ``restore(...,
+shardings=)`` is the reference's elastic restart: each rank reads the
+arrays and keeps its own block of each (``Sharding``'s placements, at the
+offsets DTensor gives them; no collective), so a checkpoint saved on one
+mesh (or by the reference, or on one device) restores onto another. A
+DTensor template leaf restores onto its own placements.
 """
 from __future__ import annotations
 
@@ -50,16 +59,55 @@ def _flatten_with_names(tree, prefix: tuple = ()) -> list:
     return [("/".join(str(k) for k in prefix), tree)]
 
 
-def _map_named(fn, tree, prefix: tuple = ()):
-    """``tree`` with each leaf replaced by ``fn(name, leaf)``."""
+def _map_named(fn, tree, other=None, prefix: tuple = ()):
+    """``tree`` with each leaf replaced by ``fn(name, leaf, other's leaf
+    at the same place)`` (``other`` None: None)."""
+    def sub(key):
+        return None if other is None else other[key]
     if isinstance(tree, dict):
-        return {k: _map_named(fn, v, prefix + (k,)) for k, v in tree.items()}
+        return {k: _map_named(fn, v, sub(k), prefix + (k,))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_named(fn, v, prefix + (i,))
+        return type(tree)(_map_named(fn, v, sub(i), prefix + (i,))
                           for i, v in enumerate(tree))
     if tree is None:
         return None
-    return fn("/".join(str(k) for k in prefix), tree)
+    return fn("/".join(str(k) for k in prefix), tree, other)
+
+
+def _mesh_of(leaves) -> Any:
+    """The mesh of the DTensor leaves, or None (all on one mesh)."""
+    from torch.distributed.tensor import DTensor
+    meshes = {id(t.device_mesh): t.device_mesh for t in leaves
+              if isinstance(t, DTensor)}
+    if len(meshes) > 1:
+        raise ValueError("a checkpoint's DTensors must share one mesh")
+    return next(iter(meshes.values()), None)
+
+
+def _is_writer(mesh) -> bool:
+    """The rank at the mesh's origin writes (every rank without a mesh)."""
+    return mesh is None or all(c == 0 for c in mesh.get_coordinate())
+
+
+def _mesh_barrier(mesh) -> None:
+    """Every rank of ``mesh`` waits for the others: an all-reduce over
+    each mesh dim (a submesh has no process group of its own ranks)."""
+    import torch.distributed._functional_collectives as fc
+    t = torch.zeros(1, device=mesh.device_type)
+    for d in range(mesh.ndim):
+        t = fc.wait_tensor(fc.all_reduce(t, "sum", (mesh, d)))
+
+
+def _block(arr: np.ndarray, sharding) -> tuple:
+    """(this rank's block of the global ``arr`` under ``sharding``,
+    the global shape)."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape, off = compute_local_shape_and_global_offset(
+        arr.shape, sharding.mesh, tuple(sharding.placements))
+    idx = tuple(slice(o, o + n) for o, n in zip(off, shape))
+    return np.ascontiguousarray(arr[idx]), arr.shape
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -85,6 +133,22 @@ def _sha256(arr: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
 
 
+def _placed(sh):
+    """A Sharding, or a DTensor's (mesh, placements) as one."""
+    if hasattr(sh, "device_mesh"):
+        from repro_torch.distributed.sharding import Sharding
+        return Sharding(sh.device_mesh, (), tuple(sh.placements))
+    return sh
+
+
+def _contiguous_stride(shape) -> tuple:
+    out, acc = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(acc)
+        acc *= n
+    return tuple(reversed(out))
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
@@ -92,27 +156,50 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._mesh = None           # a meshed save_async's barrier is due
 
     # ------------------------------------------------------------------
     def _step_dir(self, step: int) -> str:
         return os.path.join(self.dir, f"step_{step:010d}")
 
     @staticmethod
-    def _snapshot(tree) -> tuple[list, list]:
+    def _snapshot(tree) -> tuple[list, list, Any]:
+        """(names, host copies, the leaves' mesh or None). A DTensor leaf
+        is gathered on every rank of its mesh (a collective), one leaf at
+        a time; only the writer copies it to the host, and the other ranks
+        drop it at once (their host copies are empty)."""
+        from repro_torch.distributed.sharding import full_value
         named = _flatten_with_names(tree)
-        return [n for n, _ in named], [_to_storable(t) for _, t in named]
+        mesh = _mesh_of([t for _, t in named])
+        writer = _is_writer(mesh)
+        storable = []
+        for _, t in named:
+            full = full_value(t)
+            if writer:
+                storable.append(_to_storable(full))
+            del full
+        return [n for n, _ in named], storable, mesh
 
     def save(self, step: int, tree: Any, metadata: Optional[dict] = None
              ) -> str:
-        names, storable = self._snapshot(tree)
-        return self._write(step, names, storable, metadata or {})
+        names, storable, mesh = self._snapshot(tree)
+        final = self._step_dir(step)
+        if _is_writer(mesh):
+            final = self._write(step, names, storable, metadata or {})
+        if mesh is not None:
+            _mesh_barrier(mesh)
+        return final
 
     def save_async(self, step: int, tree: Any,
                    metadata: Optional[dict] = None) -> None:
-        """Snapshot now (device→host copy), write in background."""
+        """Snapshot now (device→host copy), write in background; on a
+        mesh every rank calls it, and ``wait`` is the barrier."""
         self.wait()
-        names, storable = self._snapshot(tree)       # synchronous snapshot
+        names, storable, mesh = self._snapshot(tree)  # synchronous snapshot
         meta = dict(metadata or {})
+        self._mesh = mesh
+        if not _is_writer(mesh):
+            return
 
         def _bg():
             try:
@@ -127,6 +214,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._mesh is not None:
+            mesh, self._mesh = self._mesh, None
+            _mesh_barrier(mesh)
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -178,17 +268,17 @@ class CheckpointManager:
     def restore(self, step: int, template: Any, shardings: Any = None,
                 verify: bool = True) -> Any:
         """template: a tree of tensors giving the structure, and each
-        leaf's shape, dtype and device."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restoring onto shardings comes with training on a mesh "
-                "(slice 13)")
+        leaf's shape, dtype and device. shardings: None, or a tree of the
+        template's structure whose leaves are ``Sharding``s (or None): a
+        leaf with one comes back as a DTensor on its placements, each rank
+        holding its block. A DTensor template leaf without one restores
+        onto the template's own placements."""
         path = self._step_dir(step)
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
 
         with np.load(os.path.join(path, "arrays.npz")) as data:
-            def load(name, leaf):
+            def load(name, leaf, sh):
                 arr = data[name]
                 ent = manifest["entries"][name]
                 if verify and _sha256(arr) != ent["sha256"]:
@@ -196,9 +286,22 @@ class CheckpointManager:
                 if tuple(arr.shape) != tuple(leaf.shape):
                     raise ValueError(f"shape mismatch {name}: {arr.shape} "
                                      f"vs {tuple(leaf.shape)}")
-                return _from_storable(arr, ent["dtype"]).to(
-                    device=leaf.device, dtype=leaf.dtype)
-            return _map_named(load, template)
+                if sh is None and hasattr(leaf, "placements"):
+                    sh = leaf
+                if sh is None:
+                    return _from_storable(arr, ent["dtype"]).to(
+                        device=leaf.device, dtype=leaf.dtype)
+                from torch.distributed.tensor import DTensor
+                sh = _placed(sh)
+                block, shape = _block(arr, sh)
+                device = leaf.to_local().device if hasattr(
+                    leaf, "to_local") else leaf.device
+                loc = _from_storable(block, ent["dtype"]).to(
+                    device=device, dtype=leaf.dtype)
+                return DTensor.from_local(
+                    loc, sh.mesh, tuple(sh.placements), run_check=False,
+                    shape=shape, stride=_contiguous_stride(shape))
+            return _map_named(load, template, shardings)
 
     def manifest(self, step: int) -> dict:
         with open(os.path.join(self._step_dir(step), "manifest.json")) as f:

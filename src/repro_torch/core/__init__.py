@@ -1,9 +1,10 @@
 # The paper's primary contribution — the LightKernel persistent execution
 # model (mailbox protocol, persistent and megakernel runtimes, cluster
 # pinning, dispatcher, WCET accounting) — ported to PyTorch. Counterpart of
-# ``repro.core``, less ``make_cluster_mesh`` (training on a mesh, slice 13).
+# ``repro.core``.
 from repro_torch.core import mailbox
-from repro_torch.core.clusters import Cluster, ClusterManager
+from repro_torch.core.clusters import (Cluster, ClusterManager,
+                                       make_cluster_mesh)
 from repro_torch.core.dispatcher import (AdmissionError, AllClustersFailed,
                                          Completion, Dispatcher, Ticket,
                                          TicketCancelled)
@@ -14,7 +15,7 @@ from repro_torch.core.system import LkSystem, WorkClass
 from repro_torch.core.wcet import WcetTracker
 
 __all__ = [
-    "mailbox", "Cluster", "ClusterManager",
+    "mailbox", "Cluster", "ClusterManager", "make_cluster_mesh",
     "AdmissionError", "AllClustersFailed", "Completion", "Dispatcher",
     "ElasticController", "ExecutableCache",
     "Ticket", "TicketCancelled", "LkSystem", "WorkClass",

@@ -397,6 +397,20 @@ class _PipelinedRuntime:
         return self.wait()
 
 
+def _place(state, shardings):
+    """``state``'s leaves with a Sharding in ``shardings`` (same structure;
+    None leaves stay plain) as DTensors on its placements, each rank
+    keeping its block (no collective)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def put(t, sh):
+        if sh is None:
+            return t
+        return distribute_tensor(t, sh.mesh, tuple(sh.placements),
+                                 src_data_rank=None)
+    return tree_map(put, state, shardings)
+
+
 class PersistentRuntime(_PipelinedRuntime):
     """One persistent worker (paper: one SM / one cluster).
 
@@ -422,11 +436,24 @@ class PersistentRuntime(_PipelinedRuntime):
     ``staged_misses`` mid-item re-triggers whose entry was evicted (or
     staging is off). ``device`` is where state, carries and results live;
     it defaults to ``"cuda"`` and raises when CUDA is absent.
+
+    ``mesh`` and ``state_shardings`` (a tree of the state's structure whose
+    leaves are ``Sharding``s on ``mesh``, or None): ``boot`` places each
+    leaf with a Sharding as a DTensor on its placements, every rank of the
+    mesh keeping its block (the reference's ``jax.device_put(state,
+    shardings)``), and the work fns run on them; every rank of the mesh
+    drives the runtime with the same descriptors (SPMD), and a DTensor
+    result comes back as its full value on each (``full_tensor``: a
+    collective of the mesh's ranks). ``device`` is then the mesh's device
+    (the rank's card, or the CPU). The scan runtime compiles nothing, so
+    there is no executable cache to bypass.
     """
 
     def __init__(self, work_fns: Sequence[tuple],
                  result_template: Any,
                  tracker: Optional[WcetTracker] = None,
+                 mesh=None,
+                 state_shardings=None,
                  max_inflight: int = 2,
                  max_steps: int = 8,
                  telemetry: Optional[TraceCollector] = None,
@@ -439,6 +466,12 @@ class PersistentRuntime(_PipelinedRuntime):
             raise ValueError("max_steps must be >= 1")
         if staged_cap < 0:
             raise ValueError("staged_cap must be >= 0")
+        if (mesh is None) != (state_shardings is None):
+            raise ValueError("mesh and state_shardings go together")
+        self.mesh = mesh
+        self._state_shardings = state_shardings
+        if mesh is not None:
+            device = mesh.device_type
         self.device = check_device(device)
         self.work_names = [entry[0] for entry in work_fns]
         self._fns = [_normalize_work_fn(entry[1]) for entry in work_fns]
@@ -480,6 +513,9 @@ class PersistentRuntime(_PipelinedRuntime):
             carries = [carry if j == opcode else c
                        for j, c in enumerate(carries)]
             done = bool(done)
+            if self.mesh is not None:
+                from repro_torch.distributed.sharding import full_value
+                result = tree_map(full_value, result)
         else:
             result = tree_map(torch.zeros_like, self._result_template)
             done = True
@@ -552,6 +588,8 @@ class PersistentRuntime(_PipelinedRuntime):
         with self.tracker.phase("init"):
             dev = self.device
             self._state = tree_map(lambda t: t.to(dev), state)
+            if self.mesh is not None:
+                self._state = _place(self._state, self._state_shardings)
             self._carries = [tree_map(lambda x: x.to(dev).clone(), tmpl)
                              for tmpl in self._carry_templates]
             self._result_template = tree_map(lambda t: t.to(dev),

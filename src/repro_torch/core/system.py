@@ -38,8 +38,31 @@ first device when that is a ``torch.device``, else on ``"cuda"``, which
 raises where CUDA is absent; the scan runtime compiles
 nothing, so only ``runtime="mega"`` boots go through the shared
 ``ExecutableCache``; there is no ``donate`` knob (state is updated in
-place); ``state_shardings_factory`` waits for cluster meshes (slice 13)
-and raises ``NotImplementedError``.
+place).
+
+``state_shardings_factory(cluster)`` (the reference's, wired the same
+way) gives a cluster's state placements on its mesh (``Cluster.mesh``: the
+system's cluster manager is then ``meshed``, which needs a process group
+and is made on every rank); that cluster's runtime then boots its state
+as DTensors on them. The design differs from the reference's in who
+drives a cluster. The reference is a single controller: one host drives
+every cluster's runtime. The port is SPMD: every rank runs this same
+program, so each rank boots (and registers with its dispatcher) only the
+runtimes of the clusters whose mesh holds it, and every rank of a
+cluster drives that cluster's runtime with the same submissions. Booting
+every cluster on every rank would leave a rank outside a cluster waiting
+for acks its (empty) blocks never write; this way each cluster is driven
+by its own ranks and nothing crosses clusters — the paper's spatial
+isolation. A cluster's results come back whole on each of its ranks; a
+rank learns another cluster's only by a collective of its own. A class
+pinned to a cluster runs on that cluster's ranks only: elsewhere
+``submit`` of it raises (``drives_class`` says where it runs), where the
+reference would remap the pin onto a cluster the rank drives; an unpinned
+class runs on each rank's own cluster. There is no warm pool (a spare
+booted on one cluster's mesh is wrong for another's). A heal
+(``mark_failed`` → ``recarve``) builds the new meshes with a collective
+of every rank, so it must be made with the same failed set on every rank
+(a failure only the cluster's ranks observe has to be agreed first).
 """
 from __future__ import annotations
 
@@ -149,14 +172,11 @@ class LkSystem:
         if runtime not in ("scan", "mega"):
             raise ValueError(
                 f"runtime must be 'scan' or 'mega', got {runtime!r}")
-        if state_shardings_factory is not None:
-            raise NotImplementedError(
-                "state_shardings_factory needs cluster meshes, which come "
-                "with training on a mesh (slice 13)")
         self.cm = cluster_manager if cluster_manager is not None else \
             ClusterManager(devices=devices, n_clusters=n_clusters,
                            axis_names=axis_names,
-                           cluster_shape=cluster_shape)
+                           cluster_shape=cluster_shape,
+                           meshed=state_shardings_factory is not None)
         self._target_clusters = len(self.cm.clusters)
         self._state_factory = state_factory
         self._result_template = result_template
@@ -165,6 +185,16 @@ class LkSystem:
         self._completion_window = int(completion_window)
         self._straggler_factor = straggler_factor
         self._runtime_factory = runtime_factory
+        self._shardings_factory = state_shardings_factory
+        if state_shardings_factory is not None and \
+                any(c.mesh is None for c in self.cm.clusters):
+            raise RuntimeError(
+                "state_shardings_factory places state on cluster meshes: "
+                "give a ClusterManager made with meshed=True (it needs a "
+                "running process group)")
+        # classes pinned to a cluster this rank does not drive (meshed
+        # state only): name -> that cluster's id
+        self._elsewhere: dict[str, int] = {}
         # runtime selection: "scan" = PersistentRuntime (host-refilled
         # descriptor ring, the default); "mega" = MegaRuntime (device-
         # resident queue drained by ONE drain-kernel launch per cluster —
@@ -277,7 +307,8 @@ class LkSystem:
             wcet_quantile=self._wcet_quantile,
             on_failure=self._on_cluster_failure if self._heal else None)
         for cl in self.cm.healthy_clusters():
-            self._add_cluster(cl)
+            if self._drives(cl):
+                self._add_cluster(cl)
         self._repin()
         if self.telemetry is not None:
             self.telemetry.register_source("exec_cache",
@@ -321,6 +352,8 @@ class LkSystem:
             except Exception:
                 pass
         self._warm.clear()
+        if self.cm.meshed:
+            self.cm.release_retired()
         self.dispatcher = None
         reap_deferred()    # finalize the teardown dispose() deferred
 
@@ -338,6 +371,11 @@ class LkSystem:
         self._require_booted()
         if work_class not in self._classes:
             raise KeyError(work_class)
+        if work_class in self._elsewhere:
+            raise ValueError(
+                f"WorkClass {work_class!r} is pinned to cluster "
+                f"{self._elsewhere[work_class]}, which this rank does not "
+                f"drive: submit it on that cluster's ranks")
         if n_chunks < 1:
             raise ValueError("n_chunks must be >= 1")
         self.reap()     # retire any lame duck whose backlog has drained —
@@ -369,6 +407,15 @@ class LkSystem:
         if self.elastic is not None:
             self.elastic.maybe_tick()
         return out
+
+    def drives_class(self, work_class: str) -> bool:
+        """Whether ``submit(work_class)`` runs here: always, but with
+        meshed state for a class pinned to a cluster this rank does not
+        drive."""
+        self._require_booted()
+        if work_class not in self._classes:
+            raise KeyError(work_class)
+        return work_class not in self._elsewhere
 
     def _require_booted(self) -> None:
         if self.dispatcher is None:
@@ -425,6 +472,8 @@ class LkSystem:
             key = tuple(sorted(id(dev) for dev in c.devices))
             live_by_devs.setdefault(key, []).append(d)
         for cl_new in clusters:
+            if not self._drives(cl_new):
+                continue
             key = tuple(sorted(id(dev) for dev in cl_new.devices))
             cand = live_by_devs.get(key)
             if cand:
@@ -508,6 +557,8 @@ class LkSystem:
         # path place it finalizes. Replenish the warm pool afterwards so
         # the NEXT recarve finds pre-booted spares again.
         reap_deferred()
+        if self.cm.meshed and not self._lame_ducks:
+            self.cm.release_retired()   # no runtime is left on those meshes
         self._prestage()
         return reaped
 
@@ -516,10 +567,12 @@ class LkSystem:
         """Fill the warm pool up to ``warm_pool`` pre-BOOTED spare
         runtimes (served by the shared executable cache), so a
         grow-recarve registers capacity in milliseconds. Disabled when a
-        custom runtime factory makes runtimes cluster-specific
-        (a spare booted for one partition would be wrong for another)."""
+        custom runtime factory or meshed state makes runtimes cluster-
+        specific (a spare booted for one partition would be wrong for
+        another)."""
         if self._warm_pool_size <= 0 or self.dispatcher is None \
-                or self._runtime_factory is not None:
+                or self._runtime_factory is not None \
+                or self._shardings_factory is not None:
             return 0
         ref = next(iter(self.cm.healthy_clusters()), None)
         if ref is None:
@@ -545,6 +598,12 @@ class LkSystem:
         self._runtimes[did] = rt
         self._cluster_of[did] = cl
         return did
+
+    def _drives(self, cl: Cluster) -> bool:
+        """Whether this rank runs ``cl``'s runtime: every cluster without
+        sharded state; with it, the clusters whose mesh holds this rank."""
+        return self._shardings_factory is None or \
+            cl.mesh.get_coordinate() is not None
 
     def _runtime_device(self, cl: Cluster):
         """Where ``cl``'s runtime lives: the cluster's first device when it
@@ -574,10 +633,14 @@ class LkSystem:
                 device=device)
             rt.boot(self._state_factory(cl))
             return rt
+        shardings = (self._shardings_factory(cl)
+                     if self._shardings_factory is not None else None)
         rt = PersistentRuntime(
             [(name, wc.fn) if wc.carry is None else (name, wc.fn, wc.carry)
              for name, wc in self._classes.items()],
             result_template=self._result_template,
+            mesh=cl.mesh if shardings is not None else None,
+            state_shardings=shardings,
             max_inflight=self._max_inflight,
             max_steps=self._max_steps,
             telemetry=self.telemetry,
@@ -589,18 +652,34 @@ class LkSystem:
 
     def _repin(self) -> None:
         """Map explicit WorkClass pins (manager-cluster indices) onto the
-        dispatcher ids currently accepting work."""
+        dispatcher ids currently accepting work. With meshed state a pin
+        names a cluster of the whole carve (the same modulo fallback, over
+        every healthy cluster, after a heal renumbers them); a class whose
+        cluster this rank does not drive is recorded, not remapped."""
         active = {d: c for d, c in self._cluster_of.items()
                   if d not in self._lame_ducks
                   and d in self.dispatcher.runtimes}
-        if not active:
-            return
         dids = sorted(active)
+        self._elsewhere = {}
         for name, wc in self._classes.items():
             if wc.pin is None:
                 continue
-            target = next((d for d in dids if active[d].cid == wc.pin),
-                          dids[wc.pin % len(dids)])
+            if self._shardings_factory is not None:
+                healthy = self.cm.healthy_clusters()
+                if not healthy:
+                    continue
+                cid = wc.pin if any(c.cid == wc.pin for c in healthy) \
+                    else healthy[wc.pin % len(healthy)].cid
+                target = next((d for d in dids if active[d].cid == cid),
+                              None)
+                if target is None:
+                    self._elsewhere[name] = cid
+                    continue
+            elif not dids:
+                return
+            else:
+                target = next((d for d in dids if active[d].cid == wc.pin),
+                              dids[wc.pin % len(dids)])
             self.dispatcher.pin(name, target)
 
     # -- reporting ------------------------------------------------------

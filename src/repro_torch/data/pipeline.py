@@ -7,8 +7,16 @@ tests), and a binary token memmap. Batches are a pure function of
 elastic restart — no data-loader state in checkpoints beyond the step id.
 Each host materializes only its data-parallel slice. The sources are the
 reference's numpy code, so the port draws the reference's batches bit for
-bit; ``ShardedLoader.device_batch`` puts them on the loader's device. Its
-mesh placement comes with training on a mesh (slice 13).
+bit; ``ShardedLoader.device_batch`` puts them on the loader's device.
+
+Given a mesh and a batch spec (the reference-style spec: one mesh-axis
+name, tuple of names or None per dim), ``device_batch`` returns the tokens
+as a DTensor on the spec's placements: every rank draws the host batch
+(a pure function of the step) and keeps its block, with no collective.
+A deliberate difference from the reference: its launcher gives its loader
+no mesh and lets ``jit`` reshard a plain array, while the port's
+``ShardCtx.constrain`` lets a plain tensor through unchanged, so the port's
+launcher hands the loader the mesh and the ``act_batch`` spec.
 """
 from __future__ import annotations
 
@@ -81,15 +89,11 @@ class DataConfig:
 
 class ShardedLoader:
     """Yields host-local batches as int32 tensors on ``device`` (default
-    CUDA, which raises where CUDA is absent). ``mesh`` placement comes with
-    training on a mesh (slice 13)."""
+    CUDA, which raises where CUDA is absent); with ``mesh`` and
+    ``batch_spec``, as DTensors on the spec's placements."""
 
     def __init__(self, source, dcfg: DataConfig, mesh=None, batch_spec=None,
                  *, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh placement of batches comes with training on a mesh "
-                "(slice 13)")
         self.source = source
         self.dcfg = dcfg
         self.mesh = mesh
@@ -108,7 +112,15 @@ class ShardedLoader:
 
     def device_batch(self, step: int) -> dict:
         tokens = torch.from_numpy(np.ascontiguousarray(self.host_batch(step)))
-        return {"tokens": tokens.to(self.device)}
+        tokens = tokens.to(self.device)
+        if self.mesh is not None and self.batch_spec is not None:
+            from torch.distributed.tensor import distribute_tensor
+            from repro_torch.distributed.sharding import spec_to_placements
+            tokens = distribute_tensor(
+                tokens, self.mesh,
+                spec_to_placements(tuple(self.batch_spec), self.mesh),
+                src_data_rank=None)
+        return {"tokens": tokens}
 
     def __iter__(self) -> Iterator:
         step = 0

@@ -24,6 +24,7 @@ tests compare specs directly.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -253,6 +254,37 @@ class ShardCtx:
             return x
         return x.redistribute(self.mesh, pl)
 
+    def gather_seq(self, x):
+        """Train mode on a mesh: the residual stream's sequence gathered
+        (``act_seq`` -> replicated) before a block's projections, the
+        entry of sequence parallelism; its backward reduce-scatters. Other
+        kinds (whose residual stream is never sequence-sharded) and plain
+        tensors pass through."""
+        if self.kind != "train":
+            return x
+        return self.constrain(x, "act_batch", None, "act_embed")
+
+    def gather_fsdp(self, tree):
+        """On a mesh, each DTensor parameter of ``tree`` gathered over the
+        fsdp axes ('pod', 'data'), keeping its tensor-parallel shards on
+        'model' (FSDP's gather at use, which the train paths make; its
+        backward reduce-scatters the gradient). Plain tensors pass
+        through."""
+        if self.mesh is None:
+            return tree
+        names = mesh_axis_names(self.mesh)
+        fsdp = {i for i, n in enumerate(names) if n in ("pod", "data")}
+
+        def gather(t):
+            if not _is_dtensor(t):
+                return t
+            from torch.distributed.tensor import Replicate
+            pl = tuple(Replicate() if i in fsdp else p
+                       for i, p in enumerate(t.placements))
+            return t if pl == tuple(t.placements) else \
+                t.redistribute(self.mesh, pl)
+        return tree_map(gather, tree)
+
     def replicate(self, x):
         """A DTensor redistributed to Replicate on every mesh dim."""
         if self.mesh is None or not _is_dtensor(x):
@@ -305,6 +337,28 @@ class ShardCtx:
     @property
     def data_axis_size(self) -> int:
         return mesh_sizes(self.mesh).get("data", 1)
+
+
+@contextlib.contextmanager
+def replicating():
+    """Plain tensors join DTensor ops as replicated values inside, as in
+    ``implicit_replication``, and the setting is restored on exit (that
+    context switches it off on exit, which ends an enclosing one: a
+    model call inside a train step, a remat body inside a model call)."""
+    from torch.distributed.tensor import DTensor
+    disp = DTensor._op_dispatcher
+    before = disp._allow_implicit_replication
+    disp._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        disp._allow_implicit_replication = before
+
+
+def full_value(t):
+    """A DTensor's full value (``full_tensor``: a collective of its mesh's
+    ranks), or ``t`` as it is."""
+    return t.full_tensor() if _is_dtensor(t) else t
 
 
 def _is_dtensor(x) -> bool:
@@ -367,3 +421,70 @@ def attach_shardings(shape_tree, sharding_tree):
                                   run_check=False, shape=tuple(s.shape),
                                   stride=s.stride())
     return tree_map(_attach, shape_tree, sharding_tree)
+
+
+class _SumGrad:
+    """Identity forward; backward sums the gradient over mesh dims
+    (Megatron's "f" operator). Built on first use: ``torch.autograd``'s
+    Function is only subclassed where a mesh trains."""
+    fn = None
+
+    @classmethod
+    def apply(cls, x, dims: tuple):
+        if cls.fn is None:
+            import torch
+
+            class SumGrad(torch.autograd.Function):
+                @staticmethod
+                def forward(ctx, t, dims):
+                    ctx.dims = dims
+                    return t.view_as(t)
+
+                @staticmethod
+                def backward(ctx, g):
+                    import torch.distributed._functional_collectives as fc
+                    from torch.distributed.tensor import DTensor
+                    mesh = g.device_mesh
+                    loc = g.to_local()
+                    for d in ctx.dims:
+                        loc = fc.all_reduce(loc, "sum", (mesh, d))
+                    loc = fc.wait_tensor(loc)
+                    return DTensor.from_local(
+                        loc, mesh, g.placements, run_check=False,
+                        shape=g.shape, stride=g.stride()), None
+            cls.fn = SumGrad
+        return cls.fn.apply(x, dims)
+
+
+def blocks_map(body, mesh, in_placements, out_placements):
+    """``local_map`` of ``body`` over DTensor arguments, right under
+    autograd too. ``local_map`` hands an input's gradient back on the
+    input's placements; where an input is replicated over a mesh dim that
+    another input is sharded over, each rank's body reads it for its own
+    block (its query heads' kv heads, its tokens' router rows, its SSM
+    heads' B and C), so each rank's gradient is a partial sum: it is
+    summed over those dims (the reference's ``shard_map`` transposes a
+    replicated input's cotangent to a ``psum`` the same way). Forward it is
+    ``local_map`` with the inputs redistributed to ``in_placements``."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+    split = sorted({i for pl in in_placements for i, p in enumerate(pl)
+                    if isinstance(p, Shard)})
+    fn = local_map(body, out_placements=out_placements,
+                   in_placements=in_placements, device_mesh=mesh,
+                   redistribute_inputs=True)
+
+    def run(*args):
+        placed = []
+        for a, pl in zip(args, in_placements):
+            if not _is_dtensor(a):          # passed whole, as local_map does
+                placed.append(a)
+                continue
+            if tuple(a.placements) != tuple(pl):
+                a = a.redistribute(mesh, pl)
+            dims = tuple(i for i in split if not isinstance(pl[i], Shard))
+            if dims and a.requires_grad:
+                a = _SumGrad.apply(a, dims)
+            placed.append(a)
+        return fn(*placed)
+    return run

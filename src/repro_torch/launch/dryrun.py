@@ -1,12 +1,17 @@
-"""Dry run of the serving cells on the production meshes — the port of
-``repro.launch.dryrun`` for the inference shapes (``prefill_32k``,
+"""Dry run of the training and serving cells on the production meshes —
+the port of ``repro.launch.dryrun`` (``train_4k``, ``prefill_32k``,
 ``decode_32k``, ``long_500k``).
 
 One process plays every rank: a ``fake`` process group of 512 ranks (its
 collectives move nothing), a ``DeviceMesh`` of the reference's shape over
 it ((16, 16) or (2, 16, 16)), and parameters, caches and inputs as DTensors
 whose local blocks are fake tensors (``FakeTensorMode``): nothing is
-allocated and no kernel runs. The step runs eagerly through the card's path:
+allocated and no kernel runs. A ``train_4k`` cell traces the whole train
+step: forward, autograd's backward and AdamW (fp32 or 8-bit, in place as
+the reference donates its state) over ``cfg.train_accum_steps``
+microbatches, on the parameters and optimizer state of ``abstract_state``
+and the batch of ``input_specs`` (``frames`` / ``vision_embeds`` included,
+so the encdec and vlm cells run). The step runs eagerly through the card's path:
 K4/K5/K6 take their shape-only branches, which tally the operations and
 bytes they would have done (``kernels.SHAPE_ONLY_TALLY``). The fake tensors
 are CUDA tensors where this PyTorch is built with CUDA; a CPU-only build
@@ -15,7 +20,8 @@ cannot take views of fake CUDA tensors, so there they are fake CPU tensors
 
 Per device (rank 0's blocks; the specs divide evenly) the record holds:
 
-* ``argument_bytes``: the local blocks of parameters, caches and inputs;
+* ``argument_bytes``: the local blocks of parameters, optimizer state
+  (train), caches (decode) and inputs;
 * ``peak_bytes_per_device``: ``MemTracker``'s peak over the step, the
   arguments included;
 * ``flops``: ``torch.utils.flop_counter``'s count of every aten op on local
@@ -32,12 +38,12 @@ Per device (rank 0's blocks; the specs divide evenly) the record holds:
 Ops DTensor runs on global shapes to propagate shardings are left out of
 every tally (``_PROPAGATING``). The reference calibrates its costs at
 one and two layer periods because XLA's cost analysis counts a scan body
-once; eager tracing runs every layer, so the counts here are whole and no
-calibration is done. ``train_4k`` is not ported (training on a mesh comes
-with slice 13).
+once; eager tracing runs every layer (and every microbatch), so the counts
+here are whole and no calibration is done.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3-8b --shape decode_32k --mesh pod
+  python -m repro_torch.launch.dryrun --arch llama3-8b --shape prefill_32k decode_32k
   python -m repro_torch.launch.dryrun --all --out results/dryrun_torch [--resume]
 """
 from __future__ import annotations
@@ -54,7 +60,7 @@ import torch.distributed as dist
 from repro_torch.configs import SHAPES, get_config, list_configs
 from repro_torch.configs.base import shape_applicable
 
-INFERENCE_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
+SHAPE_NAMES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 COLLECTIVES = {"all_reduce": "all-reduce",
                "all_gather_into_tensor": "all-gather",
                "reduce_scatter_tensor": "reduce-scatter",
@@ -224,14 +230,11 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.models import build
     from repro_torch.training.train_loop import (abstract_state,
+                                                 make_train_step,
                                                  opt_config_for)
     cfg = cfg_override if cfg_override is not None else get_config(arch)
     shape = SHAPES[shape_name]
     kind = kind_of(shape)
-    if kind == "train":
-        raise NotImplementedError(
-            "train_4k is not ported: training on a mesh (the train step on "
-            "DTensors, its dry-run cells) comes with slice 13")
     _ensure_group()
     dev = fake_device()
     mesh = make_production_mesh(multi_pod=multi_pod, device_type=dev)
@@ -242,10 +245,17 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
     mode = FakeTensorMode()
     with mode:
         model = build(cfg, ctx, device=dev)
-        params, _ = abstract_state(model, opt_config_for(cfg), ctx)
+        ocfg = opt_config_for(cfg)
+        params, opt = abstract_state(model, ocfg, ctx)
         batch, batch_ax = model.input_specs(shape, device=dev)
         batch = attach_shardings(batch, ctx.tree_shardings(batch_ax, batch))
-        if kind == "prefill":
+        if kind == "train":
+            # the reference jits this step with its state donated
+            fn = make_train_step(model, ocfg,
+                                 accum_steps=cfg.train_accum_steps,
+                                 donate=True)
+            args = (params, opt, batch)
+        elif kind == "prefill":
             def fn(p, b):
                 return model.prefill(p, b, max_seq=shape.seq_len)
             args = (params, batch)
@@ -261,19 +271,23 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
     return mesh, mode, fn, args
 
 
-def run_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
+def run_cell(arch: str, shape_name: str, multi_pod: bool,
+             cfg_override=None) -> dict:
+    """One cell's record; ``cfg_override`` traces another config (a cut
+    depth or width) under the arch's name."""
     from repro_torch import kernels
     rec = {"arch": arch, "shape": shape_name,
            "mesh": "2x16x16" if multi_pod else "16x16",
            "chips": 512 if multi_pod else 256, "device": fake_device()}
-    cfg = get_config(arch)
+    cfg = cfg_override if cfg_override is not None else get_config(arch)
     ok, why = shape_applicable(cfg, SHAPES[shape_name])
     if not ok:
         rec.update(status="SKIP", reason=why)
         return rec
     try:
         t0 = time.time()
-        mesh, mode, fn, args = build_cell(arch, shape_name, multi_pod)
+        mesh, mode, fn, args = build_cell(arch, shape_name, multi_pod,
+                                          cfg_override)
         t_build = time.time() - t0
         leaves = [_local(t) for t in _tensors(args)]
         arg_bytes = sum(t.numel() * t.element_size() for t in leaves)
@@ -343,7 +357,8 @@ def _line(tag: str, rec: dict) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
-    ap.add_argument("--shape", default=None)
+    ap.add_argument("--shape", nargs="+", default=None,
+                    help="one or more of " + ", ".join(SHAPE_NAMES))
     ap.add_argument("--mesh", choices=["pod", "multipod", "both"],
                     default="both")
     ap.add_argument("--all", action="store_true")
@@ -351,17 +366,10 @@ def main(argv=None) -> int:
     ap.add_argument("--resume", action="store_true")
     args = ap.parse_args(argv)
 
-    if args.shape is not None and kind_of(SHAPES[args.shape]) == "train":
-        raise NotImplementedError(
-            f"{args.shape} is not ported: training on a mesh comes with "
-            f"slice 13")
     os.makedirs(args.out, exist_ok=True)
     archs = list_configs() if (args.all or args.arch is None) else [args.arch]
-    shapes = (list(INFERENCE_SHAPES) if (args.all or args.shape is None)
-              else [args.shape])
-    if args.all or args.shape is None:
-        print("[dryrun] inference shapes only (train_4k comes with slice 13)",
-              flush=True)
+    shapes = (list(SHAPE_NAMES) if (args.all or args.shape is None)
+              else args.shape)
     meshes = {"pod": [False], "multipod": [True],
               "both": [False, True]}[args.mesh]
     failed = 0

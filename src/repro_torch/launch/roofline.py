@@ -22,7 +22,8 @@ are computed directly:
 ``bytes_accessed`` is the port's count (``launch/dryrun.py``): the inputs
 and outputs of every non-view op and kernel call, each once — an upper
 estimate of a fused program's traffic. MODEL_FLOPS (useful) is 2 N_active
-D a step for inference, per device; the ratio MODEL_FLOPS / flops flags
+D a step for inference and 6 N_active D for a train step (forward and
+backward over its 4096 x 256 tokens), per device; the ratio MODEL_FLOPS / flops flags
 waste (replicated kv projections, head padding, attention over the whole
 cache).
 """
@@ -60,10 +61,13 @@ def model_flops_per_device(rec: dict) -> float:
     """Useful FLOPs per device for this cell's step."""
     chips = rec["chips"]
     n_act = rec["active_params"]
+    if rec["shape"] == "train_4k":
+        # forward and backward: 6 N_active D over the step's tokens
+        return 6.0 * n_act * 4096 * 256 / chips
     tokens = {"prefill_32k": 32768 * 32, "decode_32k": 128,
               "long_500k": 1}.get(rec["shape"])
     if tokens is None:
-        raise ValueError(f"{rec['shape']} has no inference roofline")
+        raise ValueError(f"{rec['shape']} has no roofline")
     return 2.0 * n_act * tokens / chips
 
 

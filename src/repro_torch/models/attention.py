@@ -28,8 +28,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.distributed.sharding import (_is_dtensor, as_replicated,
-                                              mesh_coord, shard_axes,
-                                              unshard_dim)
+                                              blocks_map, mesh_coord,
+                                              shard_axes, unshard_dim)
 from repro_torch.kernels.decode_attention import (
     decode_attention, decode_attention_partial,
     decode_attention_partial_plain, decode_attention_plain,
@@ -65,6 +65,7 @@ def _proj(x, w):
 
 
 def qkv_project(p, x, ctx):
+    x = ctx.gather_seq(x)
     q = _proj(x, p["wq"])
     k = _proj(x, p["wk"])
     v = _proj(x, p["wv"])
@@ -144,7 +145,6 @@ def attention(q, k, v, cfg, ctx, *, causal: bool, window: int = 0,
     kw = dict(causal=causal, window=window, attn_softcap=cfg.attn_softcap)
     if ctx.mesh is None or not _is_dtensor(q):
         return fn(q, k, v, **kw)
-    from torch.distributed.tensor.experimental import local_map
     mesh = ctx.mesh
     Hkv = k.shape[2]
     q, Hq, G = pad_heads_for_tp(q, Hkv, ctx)
@@ -157,9 +157,8 @@ def attention(q, k, v, cfg, ctx, *, causal: bool, window: int = 0,
         kl, vl, _ = _local_kv(kl, vl, mesh_coord(mesh, head_axes) * hq, hq,
                               G)
         return fn(ql.contiguous(), kl.contiguous(), vl.contiguous(), **kw)
-    out = local_map(body, out_placements=(q.placements,),
-                    in_placements=(q.placements, kv_pl, kv_pl),
-                    device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+    out = blocks_map(body, mesh, (q.placements, kv_pl, kv_pl),
+                     (q.placements,))(q, k, v)
     if out.shape[2] != Hq:
         # the padded heads' outputs go; Hq itself does not divide the axis
         out = out.redistribute(mesh, unshard_dim(out.placements, 2))

@@ -75,6 +75,8 @@ def encode(params, frames, cfg, ctx, *, plain: bool = False,
     x = ctx.constrain(x, "act_batch", "act_seq", "act_embed")
 
     def body(x, lp):
+        if train:
+            lp = ctx.gather_fsdp(lp)      # a layer's fsdp gather at use
         h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
         q, k, v = attn.qkv_project(lp["attn"], h, ctx)
         o = attn.attention(q, k, v, cfg, ctx, causal=False,
@@ -87,10 +89,12 @@ def encode(params, frames, cfg, ctx, *, plain: bool = False,
         body = remat_wrap(body, cfg)
     for lp in unstack_layers(params["enc"], cfg.encoder_layers):
         x = body(x, lp)
-    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+    return rms_norm(x, ctx.gather_fsdp(params["enc_norm"]) if train
+                    else params["enc_norm"], cfg.norm_eps)
 
 
 def _cross_kv(lp, enc_out, ctx):
+    enc_out = ctx.gather_seq(enc_out)
     k = attn._proj(enc_out, lp["cross_attn"]["wk"])
     v = attn._proj(enc_out, lp["cross_attn"]["wv"])
     return k, v
@@ -151,11 +155,12 @@ def decoder_forward(params, x, enc_out, cfg, ctx, *, mode: str, pos,
 
 def _train_decoder(params, x, enc_out, cfg, ctx):
     def body(x, lp):
+        lp = ctx.gather_fsdp(lp)          # a layer's fsdp gather at use
         h = rms_norm(x, lp["ln_self"], cfg.norm_eps)
         q, k, v = attn.qkv_project(lp["self_attn"], h, ctx)
         o = attn.attention(q, k, v, cfg, ctx, causal=True, plain=True)
         x = x + attn.out_project(lp["self_attn"], o, ctx)
-        h = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
+        h = ctx.gather_seq(rms_norm(x, lp["ln_cross"], cfg.norm_eps))
         qc = attn._proj(h, lp["cross_attn"]["wq"])
         kx, vx = _cross_kv(lp, enc_out, ctx)
         oc = attn.attention(qc, kx, vx, cfg, ctx, causal=False, plain=True)

@@ -53,7 +53,10 @@ def hybrid_params(b: Init, cfg):
 
 def _shared_apply(p, x, x0, cfg, ctx, *, mode, pos, cache, valid_len,
                   plain):
-    h = torch.cat([x, x0], dim=-1) @ p["w_cat"]
+    # on a mesh: the product on the gathered sequence (train mode), the
+    # result back on the residual stream's placements
+    h = ctx.gather_seq(torch.cat([x, x0], dim=-1)) @ p["w_cat"]
+    h = ctx.constrain(h, "act_batch", "act_seq", "act_embed")
     h2, aux, new_cache = layer_apply(
         p["blk"], h, cfg, ctx, "attn_mlp", {}, mode=mode, pos=pos,
         cache=cache, valid_len=valid_len, plain=plain)
@@ -106,12 +109,13 @@ def _train_forward(params, x, cfg, ctx, pos):
     stacks = [unstack_layers(g, groups) for g in params["groups"]]
 
     def group(x, *lps):
-        x, _, _ = _shared_apply(params["shared"], x, x0, cfg, ctx,
-                                mode="train", pos=pos, cache=None,
+        # each use's fsdp gather (the shared block's too), inside remat
+        x, _, _ = _shared_apply(ctx.gather_fsdp(params["shared"]), x, x0,
+                                cfg, ctx, mode="train", pos=pos, cache=None,
                                 valid_len=None, plain=True)
         for lp in lps:
-            x, _, _ = layer_apply(lp, x, cfg, ctx, "ssm", {}, mode="train",
-                                  pos=pos)
+            x, _, _ = layer_apply(ctx.gather_fsdp(lp), x, cfg, ctx, "ssm",
+                                  {}, mode="train", pos=pos)
         return x
 
     body = remat_wrap(group, cfg)
@@ -119,8 +123,8 @@ def _train_forward(params, x, cfg, ctx, pos):
         x = body(x, *(layers[gi] for layers in stacks))
     if tail:
         for lp in unstack_layers(params["tail"], tail):
-            x, _, _ = layer_apply(lp, x, cfg, ctx, "ssm", {}, mode="train",
-                                  pos=pos)
+            x, _, _ = layer_apply(ctx.gather_fsdp(lp), x, cfg, ctx, "ssm",
+                                  {}, mode="train", pos=pos)
     return x, {}
 
 

@@ -200,6 +200,7 @@ def mlp_params(b: Init, d_model: int, d_ff: int, gated: bool):
 
 
 def mlp_apply(p, x, act: str, gated: bool, ctx):
+    x = ctx.gather_seq(x)
     h = x @ p["w_in"]
     if gated:
         g = _act(x @ p["w_gate"], act)

@@ -39,7 +39,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.core.persistent import check_device, tree_map
-from repro_torch.distributed.sharding import ShardCtx, axes
+from repro_torch.distributed.sharding import (ShardCtx, _is_dtensor,
+                                              as_replicated, axes,
+                                              blocks_map, mesh_axis_names,
+                                              mesh_coord, replicating,
+                                              shard_axes, unshard_dim)
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import transformer as tfm
@@ -58,32 +62,79 @@ def chunked_ce(hidden, targets, mask, embed_p, cfg, ctx):
     Returns (sum_ce, sum_mask, sum_correct) as f32 scalars. Each chunk's
     logits are recomputed in backward (``checkpoint``, the reference's
     ``jax.checkpoint``); padded-vocab columns stay in the log-sum-exp and
-    the argmax, as in the reference."""
+    the argmax, as in the reference. On a mesh each rank reduces its vocab
+    shard of a chunk's logits (``_vocab_parallel``); no rank holds a whole
+    chunk's logits."""
     B, S, d = hidden.shape
     chunk = min(cfg.loss_chunk, S)
-    pad = (-S) % chunk
-    if pad:
-        hidden = F.pad(hidden, (0, 0, 0, pad))
-        targets = F.pad(targets, (0, pad))
-        mask = F.pad(mask, (0, pad))
+    # the reference pads S to a multiple of the chunk with masked rows; a
+    # shorter last chunk sums the same terms (and DTensor's pad does not
+    # redistribute in every torch release)
 
     def body(h, t, m):
         logits = unembed(embed_p, h, cfg.tie_embeddings, cfg.logit_softcap,
                          ctx).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        true = torch.gather(logits, -1, t[..., None].long())[..., 0]
+        lse, true, pred = _vocab_parallel(logits, t, ctx)
         ce = (lse - true) * m
-        acc = torch.sum((torch.argmax(logits, dim=-1) == t) * m)
+        acc = torch.sum((pred == t) * m)
         return torch.sum(ce), torch.sum(m), acc
 
     z = torch.zeros((), dtype=torch.float32, device=hidden.device)
     ce_sum, n_sum, acc_sum = z, z, z
-    for lo in range(0, hidden.shape[1], chunk):
+    for lo in range(0, S, chunk):
         c, n, a = checkpoint(body, hidden[:, lo:lo + chunk],
                              targets[:, lo:lo + chunk],
                              mask[:, lo:lo + chunk], use_reentrant=False)
         ce_sum, n_sum, acc_sum = ce_sum + c, n_sum + n, acc_sum + a
     return ce_sum, n_sum, acc_sum
+
+
+def _vocab_parallel(logits, t, ctx):
+    """(log-sum-exp over the vocab, the target's logit, the argmax) of f32
+    logits (B,c,V) and targets (B,c). On a mesh whose logits are sharded
+    over the vocab, each rank reduces its shard (``blocks_map``): the
+    running max and the argmax by all-reduce (MAX; MIN of the global index
+    among the ranks holding the max, the first as ``argmax`` takes it),
+    the sum of exponentials and the target's logit (on the rank whose
+    shard holds it) as partial sums that DTensor reduces, and whose
+    backward is each rank's own."""
+    vocab_axes = (shard_axes(logits.placements, ctx.mesh, 2)
+                  if ctx.mesh is not None and _is_dtensor(logits) else [])
+    if not vocab_axes:
+        return (torch.logsumexp(logits, dim=-1),
+                torch.gather(logits, -1, t[..., None].long())[..., 0],
+                torch.argmax(logits, dim=-1))
+    import torch.distributed._functional_collectives as fc
+    from torch.distributed.tensor import Partial
+    mesh = ctx.mesh
+    dims = [mesh_axis_names(mesh).index(a) for a in vocab_axes]
+    l_pl = tuple(logits.placements)
+    row_pl = unshard_dim(l_pl, 2)
+    part_pl = tuple(Partial() if i in dims else p
+                    for i, p in enumerate(row_pl))
+
+    def reduce(x, op):
+        for d in dims:
+            x = fc.all_reduce(x, op, (mesh, d))
+        return fc.wait_tensor(x)
+
+    def body(ll, tl):
+        V = ll.shape[-1]
+        v0 = mesh_coord(mesh, vocab_axes) * V
+        mx, am = ll.detach().max(dim=-1)
+        gmax = reduce(mx, "max")
+        se = torch.exp(ll - gmax[..., None]).sum(dim=-1)
+        idx = tl.long() - v0
+        inside = (idx >= 0) & (idx < V)
+        true = torch.gather(ll, -1, idx.clamp(0, V - 1)[..., None])[..., 0]
+        true = torch.where(inside, true, torch.zeros_like(true))
+        big = torch.full_like(am, torch.iinfo(am.dtype).max)
+        pred = reduce(torch.where(mx == gmax, am + v0, big), "min")
+        return se, true, gmax, pred
+    se, true, gmax, pred = blocks_map(
+        body, mesh, (l_pl, row_pl), (part_pl, part_pl, row_pl, row_pl))(
+        logits, t)
+    return gmax + torch.log(se), true, pred
 
 
 # ---------------------------------------------------------------------------
@@ -195,28 +246,40 @@ def build(cfg: ModelConfig, ctx: ShardCtx | None = None, *,
 
         @functools.wraps(fn)
         def run(*args, **kwargs):
-            from torch.distributed.tensor.experimental import \
-                implicit_replication
-            with implicit_replication():
+            with replicating():
                 return fn(*args, **kwargs)
         return run
 
+    @on_mesh
     def loss(params, batch):
         """Mean next-token cross-entropy over the text region, plus every
-        aux scalar. Returns (total, {"ce", "acc", aux..., "loss"}), f32."""
-        tokens = batch["tokens"]                     # (B,S)
+        aux scalar. Returns (total, {"ce", "acc", aux..., "loss"}), f32.
+        On a mesh each layer's parameters are gathered over their fsdp
+        axes where the layer runs (inside its remat body: FSDP's gather at
+        use, again in backward), the rest here; the loss is a replicated
+        DTensor."""
+        params = {k: v if k == "stack" else ctx.gather_fsdp(v)
+                  for k, v in params.items()}
+        tokens = ctx.constrain(batch["tokens"], "act_batch", "act_seq")
+        batch = dict(batch, tokens=tokens)
         B, S = tokens.shape
         x, enc_out = _text_input(params, batch, "train")
         Sx = x.shape[1]
         pos = torch.arange(Sx, device=tokens.device)[None].expand(B, Sx)
+        if ctx.mesh is not None:
+            # tensors that backward multiplies with (the RoPE angles, the
+            # mask) are DTensors too: backward mixes in no plain tensor
+            pos = as_replicated(pos.contiguous(), ctx.mesh)
+        x = ctx.constrain(x, "act_batch", "act_seq", "act_embed")
         x, aux = _backbone(params, x, mode="train", pos=pos, enc_out=enc_out)
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        # the chunks slice the sequence: gathered, as the reference's
+        # per-chunk constraint gathers it
+        x = ctx.gather_seq(rms_norm(x, params["final_norm"], cfg.norm_eps))
         # next-token prediction on the text region
         off = Sx - S                                  # vision prefix length
         h = x[:, off:, :][:, :-1, :]
-        targets = tokens[:, 1:]
-        mask = torch.ones(targets.shape, dtype=torch.float32,
-                          device=targets.device)
+        targets = ctx.constrain(tokens, "act_batch", None)[:, 1:]
+        mask = torch.ones_like(targets, dtype=torch.float32)
         ce_sum, n_sum, acc_sum = chunked_ce(h, targets, mask,
                                             params["embed"], cfg, ctx)
         n = torch.clamp(n_sum, min=1.0)

@@ -29,8 +29,9 @@ import math
 
 import torch
 
-from repro_torch.distributed.sharding import (_is_dtensor, mesh_axis_names,
-                                              mesh_coord, unshard_dim)
+from repro_torch.distributed.sharding import (_is_dtensor, blocks_map,
+                                              mesh_axis_names, mesh_coord,
+                                              unshard_dim)
 from repro_torch.models.layers import Init, _act, mlp_apply, mlp_params
 
 
@@ -154,6 +155,7 @@ def moe_apply(p, x, cfg, ctx, group_mode: str = "local"):
     """x: (B,S,D) -> (y (B,S,D), aux_losses dict of scalars)."""
     m = cfg.moe
     B, S, D = x.shape
+    x = ctx.gather_seq(x)
     w = {k: p[k] for k in ("w_in", "w_gate", "w_out")}
     if ctx.mesh is not None and _is_dtensor(x):
         y, sums = _moe_on_mesh(p["router"], w, x, cfg, ctx, group_mode)
@@ -178,7 +180,6 @@ def _moe_on_mesh(router, w, x, cfg, ctx, group_mode: str):
     gathered over its fsdp dim. Returns (y (B,S,D), aux sums) as DTensors,
     y partial over the mesh dims that shard the experts."""
     from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
     mesh = ctx.mesh
     names = mesh_axis_names(mesh)
     m = cfg.moe
@@ -196,18 +197,39 @@ def _moe_on_mesh(router, w, x, cfg, ctx, group_mode: str):
     sum_pl = tuple(Partial() if isinstance(pl, Shard) else Replicate()
                    for pl in x_pl)
 
+    # every rank along an expert-split dim routes the same tokens: the aux
+    # losses' gradient reaches the router and x once a rank there, and
+    # ``blocks_map`` sums it over those dims, so each rank takes its share
+    share = 1.0 / math.prod(mesh.size(i) for i in split
+                            if not isinstance(x_pl[i], Shard))
+
     def body(xl, rl, wi, wg, wo):
         ws = {"w_in": wi, "w_gate": wg, "w_out": wo}
         e0 = mesh_coord(mesh, expert_axes) * wi.shape[0]
         xg = _groups(xl, m, group_mode)
         y, probs, idx, logits = _route_and_experts(xg, rl, ws, cfg,
                                                    group_mode, e0)
+        if share != 1.0 and probs.requires_grad:
+            probs, logits = (_GradScale.apply(t, share)
+                             for t in (probs, logits))
         return (y.reshape(xl.shape), *_aux_sums(probs, idx, logits,
                                                 m.num_experts))
-    y, *sums = local_map(
-        body, out_placements=(y_pl, sum_pl, sum_pl, sum_pl),
-        in_placements=(x_pl, rep, w_pl["w_in"], w_pl["w_gate"],
-                       w_pl["w_out"]),
-        device_mesh=mesh, redistribute_inputs=True)(
+    y, *sums = blocks_map(
+        body, mesh, (x_pl, rep, w_pl["w_in"], w_pl["w_gate"], w_pl["w_out"]),
+        (y_pl, sum_pl, sum_pl, sum_pl))(
         x, router, w["w_in"], w["w_gate"], w["w_out"])
-    return y, [t.full_tensor() for t in sums]
+    # replicated DTensors: the aux losses join the loss on the mesh
+    return y, [t.redistribute(mesh, rep) for t in sums]
+
+
+class _GradScale(torch.autograd.Function):
+    """Identity forward; backward scales the gradient by ``c``."""
+
+    @staticmethod
+    def forward(ctx, t, c: float):
+        ctx.c = c
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.c, None

@@ -20,7 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan.ops import ssd
-from repro_torch.distributed.sharding import _is_dtensor, axes
+from repro_torch.distributed.sharding import (_is_dtensor, as_replicated,
+                                              axes, blocks_map)
 from repro_torch.models.layers import Init, rms_norm
 
 
@@ -57,7 +58,13 @@ def ssm_params(b: Init, cfg):
 
 def _causal_conv(x, w):
     """x: (B,S,C...), w: (W,C...) depthwise causal conv along S, summed in
-    f32 and rounded to x's dtype."""
+    f32 and rounded to x's dtype. On a mesh (x a DTensor, S unsharded)
+    each rank convolves its block (channels are independent)."""
+    if _is_dtensor(x):
+        w = as_replicated(w, x.device_mesh)
+        pl = tuple(x.placements)
+        return blocks_map(_causal_conv, x.device_mesh,
+                          (pl, tuple(w.placements)), (pl,))(x, w)
     W = w.shape[0]
     S = x.shape[1]
     pad = F.pad(x, (0, 0) * (x.dim() - 2) + (W - 1, 0))
@@ -70,6 +77,7 @@ def _causal_conv(x, w):
 def _project(p, u, ctx):
     """u: (B,S,d) -> z,x (B,S,H,P), Bm,Cm (B,S,N), dt (B,S,H)
     pre-activation."""
+    u = ctx.gather_seq(u)
     z = torch.einsum("bsd,dhp->bshp", u, p["wz"])
     x = torch.einsum("bsd,dhp->bshp", u, p["wx"])
     Bm = u @ p["wB"]
@@ -100,18 +108,15 @@ def _ssd_on_heads(ctx, x, dt, A, Bm, Cm, *, chunk: int, plain: bool):
     shard of SSM heads (every head's scan is independent)."""
     if ctx.mesh is None or not _is_dtensor(x):
         return ssd(x, dt, A, Bm, Cm, chunk=chunk, plain=plain)
-    from torch.distributed.tensor.experimental import local_map
     pl = ctx.placements
     x_pl = pl(x, "act_batch", None, "act_heads", None)
     st_pl = pl(x.new_empty((x.shape[0], x.shape[2], 1, 1)), "act_batch",
                "act_heads")
-    return local_map(
-        lambda *a: ssd(*a, chunk=chunk, plain=plain),
-        out_placements=(x_pl, st_pl),
-        in_placements=(x_pl, pl(dt, "act_batch", None, "act_heads"),
-                       pl(A, "act_heads"), pl(Bm, "act_batch"),
-                       pl(Cm, "act_batch")),
-        device_mesh=ctx.mesh, redistribute_inputs=True)(x, dt, A, Bm, Cm)
+    return blocks_map(
+        lambda *a: ssd(*a, chunk=chunk, plain=plain), ctx.mesh,
+        (x_pl, pl(dt, "act_batch", None, "act_heads"), pl(A, "act_heads"),
+         pl(Bm, "act_batch"), pl(Cm, "act_batch")),
+        (x_pl, st_pl))(x, dt, A, Bm, Cm)
 
 
 def ssm_block(p, u, cfg, ctx, *, return_state: bool = False,

@@ -30,7 +30,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.core.persistent import tree_leaves, tree_map
-from repro_torch.distributed.sharding import axes
+from repro_torch.distributed.sharding import axes, replicating
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -183,7 +183,22 @@ def remat_wrap(body, cfg):
     if cfg.remat_policy == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_matmuls)
-    return functools.partial(checkpoint, body, use_reentrant=False, **kw)
+    return functools.partial(checkpoint, _replicating(body),
+                             use_reentrant=False, **kw)
+
+
+def _replicating(body):
+    """``body`` under ``replicating()`` when it gets DTensors: its
+    recomputation runs inside backward, outside the context the forward
+    ran in, and mixes the same plain tensors (RoPE frequencies) in."""
+    @functools.wraps(body)
+    def run(*args):
+        from torch.distributed.tensor import DTensor
+        if not any(isinstance(a, DTensor) for a in args):
+            return body(*args)
+        with replicating():
+            return body(*args)
+    return run
 
 
 def stack_params(b: Init, cfg):
@@ -261,6 +276,7 @@ def _train_stack(params, x, cfg, ctx, spec, pos):
     def period(x, *lps):
         aux: dict = {}
         for (kind, opts), lp in zip(spec, lps):
+            lp = ctx.gather_fsdp(lp)      # a layer's fsdp gather at use
             x, a, _ = layer_apply(lp, x, cfg, ctx, kind, opts, mode="train",
                                   pos=pos)
             _merge_aux(aux, a)

@@ -15,6 +15,14 @@ The arithmetic is the reference's, in f32 where it computes in f32
 parameter and state tensors, as the reference's launcher donates them to
 its jitted step (``donate_argnums=(0, 1)``): the old state is then not
 kept beside the new one. The values are the same either way.
+
+On a mesh every function takes DTensors as they come (the parameters and
+state placed by the train rules): the global norm is one reduced scalar,
+each leaf's update runs on its shards, an 8-bit block is quantized over
+the global last dim's blocks (``qblock_for``'s shard alignment keeps a
+block inside a shard where the mesh allows it; where it does not,
+``_blockable`` gathers that dim for the reshape), and the results keep
+their inputs' placements.
 """
 from __future__ import annotations
 
@@ -82,15 +90,36 @@ def qblock_for(last_dim: int, align: int = QALIGN) -> int:
     return best_plain
 
 
-def quantize_8bit(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _blockable(x, n_blocks: int):
+    """``x`` as is, or, where it is a DTensor whose last-dim shards would
+    split its ``n_blocks`` quantization blocks unevenly, with that dim
+    gathered (DTensor refuses to unflatten an uneven shard)."""
+    pl = getattr(x, "placements", None)
+    if pl is None:
+        return x
+    from torch.distributed.tensor import Shard
+    last = x.dim() - 1
+    n = math.prod(x.device_mesh.size(i) for i, p in enumerate(pl)
+                  if isinstance(p, Shard) and p.dim == last)
+    if n_blocks % n == 0:
+        return x
+    from repro_torch.distributed.sharding import unshard_dim
+    return x.redistribute(x.device_mesh, unshard_dim(pl, last))
+
+
+def quantize_8bit(x: torch.Tensor, block: int | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 quantization blockwise along the LAST dim, keeping
     the shape: q has x's shape (int8), the scales x.shape[:-1] +
-    (last/B,) (f32). A 0-d x is taken as shape (1,)."""
+    (last/B,) (f32). A 0-d x is taken as shape (1,). ``block`` gives B
+    (a rank's block of a sharded leaf keeps the whole leaf's B), else
+    ``qblock_for(last)``."""
     x = x.float()
     if x.dim() == 0:
         x = x[None]
     last = x.shape[-1]
-    B = qblock_for(last)
+    B = block or qblock_for(last)
+    x = _blockable(x, last // B)
     blocks = x.reshape(tuple(x.shape[:-1]) + (last // B, B))
     absmax = torch.amax(torch.abs(blocks), dim=-1, keepdim=True)
     scale = torch.clamp(absmax / 127.0, min=1e-12)
@@ -103,7 +132,7 @@ def dequantize_8bit(q: torch.Tensor, scale: torch.Tensor,
     shape = tuple(shape) or (1,)
     last = shape[-1]
     B = last // scale.shape[-1]
-    blocks = q.float().reshape(shape[:-1] + (last // B, B))
+    blocks = _blockable(q.float(), last // B).reshape(shape[:-1] + (last // B, B))
     return (blocks * scale[..., None]).reshape(shape)
 
 
@@ -112,9 +141,11 @@ def dequantize_8bit(q: torch.Tensor, scale: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 # An 8-bit leaf with more elements than this (and a leading axis > 1: a
-# layer or expert stack) is updated one leading-axis slice at a time, so
-# its dequantized f32 moments exist one slice at a time — the reference's
-# ``lax.scan`` over such leaves. Tests lower it to reach the slice loop.
+# layer or expert stack, an embedding) is updated a run of leading rows at
+# a time, each run under this many elements (one row at least), so its
+# dequantized f32 moments exist a run at a time — the reference's
+# ``lax.scan`` over such leaves, a row a step; rows are independent, so
+# the values are the same. Tests lower it to reach the loop.
 BIG_LEAF_ELEMS = 1 << 27
 
 
@@ -183,37 +214,91 @@ def _adamw_update_leaf(cfg, p, g, m, v, step, lr):
     return new_p, m, v
 
 
-def _update_8bit_leaf(cfg, p, g, st, step, lr):
+def _update_8bit_leaf(cfg, p, g, st, step, lr, block=None):
     m = dequantize_8bit(st["m_q"], st["m_s"], p.shape)
     v = dequantize_8bit(st["v_q"], st["v_s"], p.shape)
     new_p, m, v = _adamw_update_leaf(cfg, p, g, m, v, step, lr)
-    m_q, m_s = quantize_8bit(m)
-    v_q, v_s = quantize_8bit(v)
+    m_q, m_s = quantize_8bit(m, block)
+    v_q, v_s = quantize_8bit(v, block)
     return new_p, {"m_q": m_q, "m_s": m_s, "v_q": v_q, "v_s": v_s}
+
+
+def _like(new, old):
+    """``new`` on ``old``'s placements where both are DTensors (sharding
+    propagation may place a reduced or reshaped result otherwise, e.g. an
+    8-bit scale whose last dim the fallback left replicated), else
+    ``new``."""
+    pl = getattr(old, "placements", None)
+    if pl is None or not hasattr(new, "placements") or \
+            tuple(new.placements) == tuple(pl):
+        return new
+    return new.redistribute(old.device_mesh, pl)
+
+
+def _copy(dst, src):
+    return dst.copy_(_like(src, dst))
 
 
 def _into(dst: dict, src: dict) -> dict:
     """``src``'s values copied into ``dst``'s tensors (same keys)."""
     for k, t in src.items():
-        dst[k].copy_(t)
+        _copy(dst[k], t)
     return dst
 
 
-def _update_8bit(cfg, p, g, st, step, lr, donate: bool):
+def _update_8bit(cfg, p, g, st, step, lr, donate: bool, block=None):
     if p.dim() >= 2 and p.shape[0] > 1 and p.numel() > BIG_LEAF_ELEMS:
         out_p = p if donate else torch.empty_like(p)
         out_s = st if donate else {k: torch.empty_like(t)
                                    for k, t in st.items()}
-        for i in range(p.shape[0]):
+        rows = max(1, BIG_LEAF_ELEMS // math.prod(p.shape[1:]))
+        for i in range(0, p.shape[0], rows):
+            cut = slice(i, i + rows)
             new_p, new_s = _update_8bit_leaf(
-                cfg, p[i], g[i], {k: t[i] for k, t in st.items()}, step, lr)
-            out_p[i].copy_(new_p)
-            _into({k: t[i] for k, t in out_s.items()}, new_s)
+                cfg, p[cut], g[cut], {k: t[cut] for k, t in st.items()},
+                step, lr, block)
+            _copy(out_p[cut], new_p)
+            _into({k: t[cut] for k, t in out_s.items()}, new_s)
         return out_p, out_s
-    new_p, new_s = _update_8bit_leaf(cfg, p, g, st, step, lr)
+    new_p, new_s = _update_8bit_leaf(cfg, p, g, st, step, lr, block)
     if donate:
-        return p.copy_(new_p), _into(st, new_s)
-    return new_p, new_s
+        return _copy(p, new_p), _into(st, new_s)
+    return _like(new_p, p), {k: _like(t, st[k]) for k, t in new_s.items()}
+
+
+def _update_8bit_blocks(cfg, p, g, st, step, lr, donate: bool):
+    """``_update_8bit`` of DTensor leaves on each rank's blocks
+    (``local_map``), where every piece of the leaf's state is placed as
+    the parameter is and each rank's last dim holds whole quantization
+    blocks (``qblock_for``'s shard alignment); the big-leaf loop then runs
+    over the rank's own rows. Returns None where that does not hold (the
+    caller updates the DTensors as they are)."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    pl = tuple(p.placements)
+    B = qblock_for(p.shape[-1]) if p.dim() else 1
+    if p.dim() == 0 or tuple(g.placements) != pl or \
+            any(tuple(t.placements) != pl for t in st.values()) or \
+            p.to_local().shape[-1] % B:
+        return None
+    mesh = p.device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    keys = tuple(st)
+
+    def body(pl_, gl, sl, lr_, *sts):
+        return _update_8bit(cfg, pl_, gl, dict(zip(keys, sts)), sl, lr_,
+                            donate, B)
+
+    def flat(pl_, gl, sl, lr_, *sts):
+        new_p, new_s = body(pl_, gl, sl, lr_, *sts)
+        return (new_p, *(new_s[k] for k in keys))
+    outs = local_map(flat, out_placements=(pl,) * (1 + len(keys)),
+                     in_placements=(pl, pl, rep, rep) + (pl,) * len(keys),
+                     device_mesh=mesh)(p, g, step, lr,
+                                       *(st[k] for k in keys))
+    if donate:          # written into the given tensors' blocks
+        return p, st
+    return outs[0], dict(zip(keys, outs[1:]))
 
 
 def adamw_update(cfg: AdamWConfig, params, grads, state, *,
@@ -227,16 +312,20 @@ def adamw_update(cfg: AdamWConfig, params, grads, state, *,
     lr = _lr_at(cfg, step)
     stepf = step.to(torch.float32)
     if cfg.eightbit:
-        outs = tree_map(
-            lambda p, g, st: _update_8bit(cfg, p, g, st, stepf, lr, donate),
-            params, grads, state["mv"])
+        def upd8(p, g, st):
+            out = None
+            if hasattr(p, "placements"):
+                out = _update_8bit_blocks(cfg, p, g, st, stepf, lr, donate)
+            return out if out is not None else \
+                _update_8bit(cfg, p, g, st, stepf, lr, donate)
+        outs = tree_map(upd8, params, grads, state["mv"])
         new_mv = _part(params, outs, 1)
     else:
         def upd(p, g, m, v):
             new = _adamw_update_leaf(cfg, p, g, m, v, stepf, lr)
             if donate:
-                return p.copy_(new[0]), m.copy_(new[1]), v.copy_(new[2])
-            return new
+                return _copy(p, new[0]), _copy(m, new[1]), _copy(v, new[2])
+            return tuple(_like(t, o) for t, o in zip(new, (p, m, v)))
         outs = tree_map(upd, params, grads, state["mv"]["m"],
                         state["mv"]["v"])
         new_mv = {"m": _part(params, outs, 1), "v": _part(params, outs, 2)}

@@ -215,7 +215,6 @@ def test_entry_points_raise_without_cuda():
 # are the functions and classes it defines. The port must offer each,
 # except the TPU entry point and what the roadmap still queues.
 NOT_PORTED = {"persistent_drain_pallas",      # the Pallas TPU launch
-              "make_cluster_mesh",            # training on a mesh: slice 13
               # the reference's parameter factory class: the port's
               # models.layers.Init draws the same scales from a
               # torch.Generator, and Init.axes_mode() is its "axes" mode

@@ -409,9 +409,10 @@ def fake_world():
         dist.destroy_process_group()
 
 
-def _ref_argument_bytes(arch, shape_name, multi_pod):
-    """Sum of the reference's local shard sizes of parameters, caches and
-    inputs (its own specs and eval_shape)."""
+def _ref_argument_bytes(arch, shape_name, multi_pod, reduced=False):
+    """Sum of the reference's local shard sizes of parameters, caches
+    (decode), optimizer state (train) and inputs (its own specs and
+    eval_shape)."""
     import functools
     import jax
     from repro.configs import SHAPES, get_config
@@ -427,17 +428,31 @@ def _ref_argument_bytes(arch, shape_name, multi_pod):
             self.axis_names = tuple(shape)
     mesh = FakeMesh({"pod": 2, "data": 16, "model": 16} if multi_pod
                     else {"data": 16, "model": 16})
-    cfg = get_config(arch)
+    cfg = get_config(arch).reduced() if reduced else get_config(arch)
     shape = SHAPES[shape_name]
-    rules = make_rules(mesh, kind_of(shape))
+    # experts on the model axis only where it divides them (the dry run's
+    # rule: reduced grok-1 has 4 experts for 16 model ranks)
+    eom = cfg.moe is not None and cfg.moe.num_experts % 16 == 0
+    rules = make_rules(mesh, kind_of(shape), eom)
     m = j_build(cfg, JCtx.single())
-    trees = [(jax.eval_shape(m.init, jax.random.key(0)), m.param_axes())]
-    Sx = shape.seq_len + (cfg.vision_tokens if cfg.family == "vlm" else 0)
-    trees.append((jax.eval_shape(functools.partial(
-        m.init_caches, shape.global_batch, Sx)), m.cache_axes()))
+    pshape = jax.eval_shape(m.init, jax.random.key(0))
+    trees = [(pshape, m.param_axes())]
     batch, bax = m.input_specs(shape)
-    trees.append(({"tokens": batch["tokens"],
-                   "positions": batch["positions"]}, bax))
+    if shape.kind == "train":
+        from repro.optim.optimizer import adamw_init, adamw_state_axes
+        from repro.training import opt_config_for
+        ocfg = opt_config_for(cfg)
+        trees.append((jax.eval_shape(functools.partial(adamw_init, ocfg),
+                                     pshape),
+                      adamw_state_axes(ocfg, m.param_axes())))
+        trees.append((batch, bax))
+    else:
+        Sx = shape.seq_len + (cfg.vision_tokens if cfg.family == "vlm"
+                              else 0)
+        trees.append((jax.eval_shape(functools.partial(
+            m.init_caches, shape.global_batch, Sx)), m.cache_axes()))
+        trees.append(({"tokens": batch["tokens"],
+                       "positions": batch["positions"]}, bax))
     is_ax = lambda x: hasattr(x, "names")  # noqa: E731
     total = 0
     for sds, ax in trees:
@@ -488,12 +503,34 @@ def test_dry_run_needs_the_propagation_mark(monkeypatch):
         _propagation_apart()
 
 
-def test_dry_run_refuses_train(fake_world):
-    from repro_torch.launch.dryrun import build_cell, main
-    with pytest.raises(NotImplementedError, match="slice 13"):
-        build_cell("llama3-8b", "train_4k", False)
-    with pytest.raises(NotImplementedError, match="slice 13"):
-        main(["--arch", "llama3-8b", "--shape", "train_4k"])
+@pytest.mark.parametrize("arch,multi_pod", [
+    ("llama3-8b", False), ("grok-1-314b", True), ("whisper-tiny", False)])
+def test_dry_run_refuses_train(fake_world, arch, multi_pod):
+    """A train_4k cell (forward, backward and AdamW on fake DTensors) of a
+    reduced config is OK: its arguments (parameters, fp32 or 8-bit
+    optimizer state, the batch with its frames) are the reference's
+    shards by arithmetic, its peak holds at least them, and its
+    collectives include the fsdp gathers and their reduce-scatters."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import roofline
+    from repro_torch.launch.dryrun import run_cell
+    cfg = get_config(arch).reduced()
+    if cfg.train_accum_steps > 1:      # grok-1's 8 microbatches, cut to 2
+        cfg = dataclasses.replace(cfg, train_accum_steps=2)
+    rec = run_cell(arch, "train_4k", multi_pod, cfg_override=cfg)
+    assert rec["status"] == "OK", rec.get("traceback")
+    mem = rec["memory"]
+    assert mem["argument_bytes"] == _ref_argument_bytes(
+        arch, "train_4k", multi_pod, reduced=True)
+    assert mem["peak_bytes_per_device"] >= mem["argument_bytes"]
+    counts = rec["collectives"]["counts"]
+    assert counts["all-gather"] > 0 and counts["reduce-scatter"] > 0
+    assert rec["cost"]["kernels"] == {}        # training launches none
+    row = roofline.analyse(rec)
+    assert row.model_flops == pytest.approx(
+        6 * rec["active_params"] * 4096 * 256 / rec["chips"])
+    json.dumps(rec)
 
 
 def test_roofline_terms_use_h100_figures():

@@ -174,11 +174,41 @@ def test_cluster_manager_matches_reference():
     assert got == carve_script(REF)
     assert got[0][3] and got[0][4] == pytest.approx(8 / 9)
     assert not got[3][3]                      # one device carved three ways
-    with pytest.raises(NotImplementedError, match="slice 13"):
+    # cluster meshes are DeviceMeshes over a process group's ranks; with
+    # no group running (here) a cluster holds none, and asking for one
+    # raises (8 gloo ranks: tests/test_torch_mesh_train.py)
+    assert all(c.mesh is None for c in
+               t_clusters.ClusterManager(devices=devs(4), n_clusters=2)
+               .clusters)
+    with pytest.raises(RuntimeError, match="process group"):
         t_clusters.make_cluster_mesh(devs(2))
-    with pytest.raises(NotImplementedError, match="slice 13"):
+    with pytest.raises(RuntimeError, match="process group"):
         make_system(PORT, devices=devs(2),
                     state_shardings_factory=lambda cl: None)
+
+
+def test_plain_system_boots_under_a_process_group(tmp_path):
+    """Cluster meshes are built only for meshed state: under a running
+    (one-rank gloo) group a plain LkSystem on CPU devices carves, boots
+    and serves as without one, and makes no process group."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _world
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}",
+                            rank=0, world_size=1)
+    try:
+        groups = len(_world.pg_map)
+        sys_ = make_system(PORT, devices=cpus(4), n_clusters=2,
+                           work_classes=[PORT.WorkClass("add", fn=PORT.add,
+                                                        pin=1)])
+        with sys_:
+            got = [float(sys_.submit("add").result()[0]) for _ in range(2)]
+            placed = {sys_._cluster_of[d].cid
+                      for d in sys_.dispatcher.pins()["add"]}
+        assert got == [4.0, 8.0] and placed == {1}
+        assert all(c.mesh is None for c in sys_.cm.clusters)
+        assert not sys_.cm.meshed and len(_world.pg_map) == groups
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("seed", [0, 1])

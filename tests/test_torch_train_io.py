@@ -86,10 +86,33 @@ def test_sharded_loader_batches_equal_reference(hosts):
                                   src.batch(0, 4, 8))
 
 
-def test_sharded_loader_refuses_a_mesh_and_a_ragged_split():
-    with pytest.raises(NotImplementedError, match="slice 13"):
-        ShardedLoader(SyntheticLM(11), DataConfig(4, 8), mesh=object(),
-                      device="cpu")
+@pytest.fixture
+def one_rank_mesh(tmp_path):
+    """A (1, 1) ('data', 'model') mesh over a one-rank gloo group, torn
+    down after the test (tests/test_torch_mesh_train.py runs 8 ranks)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cpu", (1, 1),
+                               mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_loader_refuses_a_mesh_and_a_ragged_split(one_rank_mesh):
+    """A mesh and a batch spec give DTensor batches on the spec's
+    placements, equal to the reference's; a ragged split still raises."""
+    from torch.distributed.tensor import DTensor, Shard
+    src = SyntheticLM(11)
+    ld = ShardedLoader(src, DataConfig(4, 8), mesh=one_rank_mesh,
+                       batch_spec=("data",), device="cpu")
+    b = ld.device_batch(3)["tokens"]
+    assert isinstance(b, DTensor)
+    assert tuple(b.placements)[0] == Shard(0)
+    np.testing.assert_array_equal(b.full_tensor().numpy(),
+                                  JSyntheticLM(11).batch(3, 4, 8))
     with pytest.raises(ValueError):
         ShardedLoader(SyntheticLM(11), DataConfig(6, 8, host_count=4),
                       device="cpu")
@@ -171,11 +194,26 @@ def test_shape_mismatch_rejected(tmp_path, tree):
         cm.restore(1, bad)
 
 
-def test_restore_onto_shardings_waits_for_distribution(tmp_path, tree):
-    cm = CheckpointManager(str(tmp_path))
+def test_restore_onto_shardings_waits_for_distribution(tmp_path, tree,
+                                                       one_rank_mesh):
+    """``shardings=`` gives DTensors on the given placements, exactly the
+    saved values (8 ranks and other meshes: test_torch_mesh_train.py); a
+    save of those DTensors writes the single-device files."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed.sharding import Sharding, spec_to_placements
+    cm = CheckpointManager(str(tmp_path / "ck"))
     cm.save(2, tree)
-    with pytest.raises(NotImplementedError, match="slice 13"):
-        cm.restore(2, tree, shardings=tree)
+    spec = ("model", "data")
+    sh = Sharding(one_rank_mesh, spec,
+                  spec_to_placements(spec, one_rank_mesh))
+    shardings = {"params": {"w": sh, "b": None}, "opt": {"step": None}}
+    back = cm.restore(2, tree, shardings=shardings)
+    assert isinstance(back["params"]["w"], DTensor)
+    assert tuple(back["params"]["w"].placements) == sh.placements
+    assert torch.equal(back["params"]["w"].full_tensor(), tree["params"]["w"])
+    assert torch.equal(back["params"]["b"], tree["params"]["b"])
+    cm.save(3, back)
+    assert cm.manifest(3)["entries"] == cm.manifest(2)["entries"]
 
 
 def test_restore_takes_the_template_dtype(tmp_path, tree):
