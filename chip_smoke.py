@@ -104,9 +104,19 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    (the reduced configs: f32, head dim 32): every request completes,
    ``met == n``, K5/K4 launched (K6 for ssm and hybrid), no plain
    attention or SSD called;
-4h. training (``repro_torch.launch.train.main``), with K4/K5/K6 launched
-   0 times in every run and the plain attention/SSD above 0 (train mode
-   takes them, as the reference trains through XLA): 8 steps of every
+4h. training: first the training pair at every train-capable family's
+   attention shapes (llama3-8b B=1 S=4096 / B=8 S=256 / B=1 S=2048,
+   zamba2-7b D=112, gemma2-2b D=256 window 4096 softcap 50 S=4608, grok-1
+   G=6 softcap 30, whisper-tiny's encoder and 17 x 1500 cross-attention,
+   the reduced 4/2 x 32 f32): K5 with its lse and K5-bwd against their
+   plain versions (2e-2 / 1e-4 x the largest |want|, lse 1e-4), K5-bwd's,
+   its plain version's, K5-with-lse's and the library backward's times
+   (SDPA's, or at a softcap row the compiled ``flex_attention``'s, timed
+   after phase 9; each a CUDA-graph replay as the kernels are, its
+   gradients held to the plain backward's) and the bound; then ``repro_torch.launch.train.main`` runs, each launching K5
+   (once an attention layer a microbatch, twice under remat) and K5-bwd
+   (once) as its config implies, K4/K6 and K1-K3 0 times, the plain SSD
+   above 0 where the model has one and no plain attention: 8 steps of every
    arch the tokens-only loader feeds (dense x4, ssm, hybrid, moe x2) at
    ``--reduced``, finite losses and grad norms, the last loss below the
    first (the two 8-bit moe configs again with fp32 AdamW for that check:
@@ -122,6 +132,12 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    optimizer-byte floors by arithmetic; one reduced llama3-8b train step
    x3 on the card and on the CPU from the same parameters and batches
    (f32, TF32 off): loss within 1e-5 relative, parameters within 1e-4;
+   then llama3-8b 8 of 32 layers at B=1 S=4096, 5 steps on the kernel path
+   and on the full-score path (``attn_backend="masked"``) in turns: step
+   times, device-busy shares, step peaks and forward + backward peaks (the
+   kernel path's must be lower), losses finite and falling, step 0's
+   within 1e-3, and one forward + backward's gradients at the seed-0
+   parameters within 5e-2 of each other (relative norm, each tensor);
 4i. the mesh: K4's shard mode (``decode_attention_partial``) on 2, 4 and 16
    sequence shards of llama3-8b's B=4 S=4096 cache (valid lengths 3, 1000,
    2049, 4096: empty shards) and of gemma2-2b's B=1 S=4609 D=256 cache
@@ -151,8 +167,9 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    without a break; llama3-8b at full width with 8 of 32 layers (bf16) for
    10 steps (finite losses, the mean of the last three below the first),
    its step time beside phase 4h's single path in this call, one profiled
-   step's device-busy share and the peak memory; K4/K5/K6 launched 0
-   times in every meshed train run; ``LkSystem(state_shardings_factory=)``
+   step's device-busy share and the peak memory; K5 and K5-bwd launched
+   as each meshed train run's config implies (on the rank's heads), K4/K6
+   0 times; ``LkSystem(state_shardings_factory=)``
    on two clusters, each a mesh over rank 0, against the same system
    without shardings (results equal, ``met == n``); then the dry run's
    train_4k for llama3-8b on the 16x16 mesh and its roofline row;
@@ -184,7 +201,8 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    violations, device spans = drained rows = chunks submitted;
 9. a preemption probe: a HIGH arrival's first trigger lands between the
    chunk retirements of an 8-chunk LOW item under ``MegaRuntime``;
-10. the softcap rows' library call (``flex_attention``, phase 3) timed;
+10. the softcap rows' library call (``flex_attention``, phases 3 and 4h)
+   timed;
    a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name/power-limit
    line, and last ``{"ok": true, "device": {...}}``.
 
@@ -232,7 +250,10 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_partial_plain, decode_attention_plain,
     merge_decode_partials)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_plain)
+    flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+    flash_attention_fwd, flash_attention_lse_plain, flash_attention_plain)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    kernel as fa_kernel)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_chunk, ssd_chunk_plain)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
@@ -246,7 +267,7 @@ from repro_torch.training import (init_state, make_train_step,  # noqa: E402
                                   opt_config_for)
 from repro_torch.training.train_loop import _value_and_grad  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
-from repro_torch.models import build  # noqa: E402
+from repro_torch.models import attention_layers, build  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.system import LkSystem  # noqa: E402
 
@@ -291,6 +312,11 @@ KERNELS = {
         source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:23",
         wrapper=flash_attention),
+    "flash_attention_bwd": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        replaces="src/repro/models/attention.py:227",
+        wrapper=flash_attention_bwd),
     "decode_attention": dict(
         route="cuda",
         source="src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
@@ -371,6 +397,38 @@ def time_ms(fn, iters: int = 20, reps: int = 3) -> float:
     return ms
 
 
+def backward_ms(forward, inputs, dout, iters: int = 10,
+                reps: int = 3) -> float:
+    """Device time of one ``torch.autograd.grad(forward(), inputs, dout)``,
+    timed as ``time_ms`` times a call: ``iters`` backward passes captured
+    in a CUDA graph and replayed between CUDA events. The forward runs
+    once, before the capture, on the stream the graph captures: autograd
+    runs each backward op on its forward op's stream."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        out = forward()
+        for _ in range(3):
+            torch.autograd.grad(out, inputs, dout, retain_graph=True)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(iters):
+            torch.autograd.grad(out, inputs, dout, retain_graph=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (iters * reps)
+    del graph, out
+    return ms
+
+
 def host_ms(fn, iters: int = 20) -> float:
     """Wall time of one eager ``fn`` call, launch cost included."""
     fn()
@@ -432,6 +490,18 @@ def _sdpa_gqa(q, k, v, **kw):
     return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
 
 
+def _compiled_flex():
+    """``flex_attention`` compiled in this process (no compile workers),
+    each row its own mask."""
+    import torch._functorch.config
+    from torch.nn.attention.flex_attention import flex_attention
+    torch._inductor.config.compile_threads = 1
+    torch._dynamo.config.recompile_limit = 64
+    # the backward is timed with retain_graph, which donated buffers refuse
+    torch._functorch.config.donated_buffer = False
+    return torch.compile(flex_attention, dynamic=False)
+
+
 def softcap_library_times(rows: list) -> None:
     """The library call at each softcap row (SDPA has no softcap):
     ``flex_attention`` with a ``softcap * tanh(s / softcap)`` score_mod,
@@ -442,11 +512,8 @@ def softcap_library_times(rows: list) -> None:
     holds both, lse at the row's ``lse_tol``). Run after every
     ``torch.profiler`` pass of the smoke: once it has compiled, the
     profiler's passes drop device events. The port never calls it."""
-    from torch.nn.attention.flex_attention import (create_block_mask,
-                                                   flex_attention)
-    torch._inductor.config.compile_threads = 1
-    torch._dynamo.config.recompile_limit = 64   # each row its own mask
-    flex = torch.compile(flex_attention, dynamic=False)
+    from torch.nn.attention.flex_attention import create_block_mask
+    flex = _compiled_flex()
     for r in rows:
         if "flex" not in r:
             continue
@@ -512,6 +579,15 @@ def softcap_witness(plain, args, kw, tol) -> float:
     return effect
 
 
+def _live_pairs(Sq: int, Skv: int, causal: bool, window: int,
+                kv_len: int) -> float:
+    """(query, key) pairs the masks leave live."""
+    qpos = np.arange(Sq)
+    hi = np.minimum(qpos if causal else np.full(Sq, Skv - 1), kv_len - 1)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(Sq, int)
+    return float(np.maximum(hi - lo + 1, 0).sum())
+
+
 def flash_case(name, B, S, dtype, gen, causal=True, window=0, softcap=0.0,
                Hq=32, Hkv=8, D=128, Skv=None) -> dict:
     """``Skv``: a key length other than the query length S (non-causal,
@@ -548,10 +624,7 @@ def flash_case(name, B, S, dtype, gen, causal=True, window=0, softcap=0.0,
             return live & (q_idx - kv_idx < window) if window else live
         flex["flex"] = (qt, kt, vt, softcap, mask_mod, None, S, S, want)
     # useful (q, k) pairs of this mask, each 4*D operations per head
-    qpos = np.arange(S)
-    hi = qpos if causal else np.full(S, Skv - 1)
-    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(S, int)
-    pairs = float(np.maximum(hi - lo + 1, 0).sum())
+    pairs = _live_pairs(S, Skv, causal, window, Skv)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     # at a softcap row library_ms and library_err are set at the end of
     # the run (softcap_library_times)
@@ -1703,6 +1776,8 @@ def plain_calls():
     counts = {}
     sites = [(attn_mod, "flash_attention_plain"),
              (attn_mod, "decode_attention_plain"),
+             (fa_kernel, "flash_attention_lse_plain"),
+             (fa_kernel, "flash_attention_bwd_plain"),
              (ssd_ops, "ssd_chunk_plain")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in sites]
 
@@ -1798,11 +1873,48 @@ class _Tee:
         self.out.flush()
 
 
-def train_run(label: str, argv: list, cfg=None, mesh=None) -> dict:
+def train_launches(cfg, steps: int) -> dict:
+    """The kernel launches ``steps`` train steps of ``cfg`` make, one
+    microbatch a step as every run here: K5 (with its lse) once an
+    attention call and again in the recompute under remat, K5-bwd once;
+    none with the 'masked' backend
+    (its full-score plain attention) and no other kernel."""
+    want = {n: 0 for n in KERNELS}
+    want["decode_attention_partial"] = 0
+    if cfg.attn_backend != "masked":
+        n = attention_layers(cfg) * steps
+        remat = cfg.remat and cfg.remat_policy != "none"
+        want["flash_attention"] = n * (2 if remat else 1)
+        want["flash_attention_bwd"] = n
+    return want
+
+
+def check_train_paths(label: str, cfg, launches: dict, plain: dict,
+                      steps: int) -> None:
+    """A train run's launches are ``train_launches``'; it called the plain
+    SSD where the model has one and no plain attention (but the full-score
+    version, the 'masked' backend's train path)."""
+    want = train_launches(cfg, steps)
+    bad = []
+    if launches != want:
+        bad.append(f"launches {launches}, want {want}")
+    if cfg.family in ("ssm", "hybrid") and not plain.get("ssd_chunk_plain"):
+        bad.append("the plain SSD was never called")
+    masked = cfg.attn_backend == "masked" and cfg.family != "ssm"
+    attn_plain = {n: c for n, c in plain.items() if n != "ssd_chunk_plain"}
+    if masked != bool(attn_plain.get("flash_attention_plain")) or \
+            set(attn_plain) - {"flash_attention_plain"}:
+        bad.append(f"plain attention calls {attn_plain}")
+    if bad:
+        raise SystemExit(f"train[{label}]: {bad}")
+
+
+def train_run(label: str, cfg, argv: list, mesh=None) -> dict:
     """``launch.train.main(argv, cfg=cfg, mesh=mesh)`` with every launch
-    counter
-    zeroed before and read after (all must stay 0: no kernel has a
-    backward) and the plain attention/SSD calls counted. Returns the
+    counter zeroed before and read after, and the plain attention/SSD
+    calls counted; the run's K5 and K5-bwd launches must be what its
+    config and steps imply and every other kernel's 0
+    (``check_train_paths``; every run here logs each step). Returns the
     logged steps, the final metrics, the launches, the plain calls and the
     run's peak memory."""
     torch.cuda.synchronize()
@@ -1817,10 +1929,7 @@ def train_run(label: str, argv: list, cfg=None, mesh=None) -> dict:
                   gnorm=float(m[4]), lr=float(m[5]), step_ms=float(m[6]))
              for m in STEP_LINE.finditer("".join(tee.text))]
     peak = torch.cuda.max_memory_allocated() / 2**30
-    bad = [n for n, k in launches.items() if k]
-    if bad:
-        raise SystemExit(f"train[{label}]: kernels launched in a train run: "
-                         f"{launches}")
+    check_train_paths(label, cfg, launches, plain, len(steps))
     finite = all(math.isfinite(x) for st in steps
                  for x in (st["loss"], st["gnorm"])) and \
         all(math.isfinite(v) for v in metrics.values())
@@ -1831,19 +1940,314 @@ def train_run(label: str, argv: list, cfg=None, mesh=None) -> dict:
                 plain=dict(plain), peak_gib=peak)
 
 
-def _need_plain(label: str, fam: str, plain: dict) -> None:
-    want = [] if fam == "ssm" else ["flash_attention_plain"]
-    if fam in ("ssm", "hybrid"):
-        want.append("ssd_chunk_plain")
-    missing = [n for n in want if not plain.get(n)]
-    if missing:
-        raise SystemExit(f"train[{label}]: train mode never called {missing} "
-                         f"(plain calls {plain})")
-
-
 def _free() -> None:
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def flash_bwd_case(name, B, Sq, Skv, Hq, Hkv, D, dtype, gen, **kw) -> dict:
+    """The training pair at one shape: K5 with its lse against
+    ``flash_attention_lse_plain``, then K5-bwd against
+    ``flash_attention_bwd_plain`` on the same (out, lse, dout): out, dq,
+    dk and dv within ATOL x their largest |want|, lse within LSE_ATOL x
+    its largest |want|. Times: K5-bwd, its plain version, K5 with its
+    lse, and the library call's backward: SDPA's where the shape has
+    neither a softcap nor a window (``backward_ms``, its gradients held
+    to the plain backward's at the row's tolerance), else the compiled
+    ``flex_attention``'s, left in the row under "flex_bwd" for
+    ``flex_backward_times`` at the end of the run. The bound is 2.5x the
+    forward's operations over the live pairs at the input type's rate,
+    with q, k, v, out, lse and dout read once and dq, dk, dv written."""
+    q = _softcap_q(_randn((B, Sq, Hq, D), dtype, gen), kw.get("attn_softcap"))
+    k = _randn((B, Skv, Hkv, D), dtype, gen)
+    v = _randn((B, Skv, Hkv, D), dtype, gen)
+    do = _randn((B, Sq, Hq, D), dtype, gen)
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    w_out, w_lse = flash_attention_lse_plain(q, k, v, **kw)
+    grads = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+
+    def err(a, b):
+        return (float((a.float() - b.float()).abs().max()),
+                float(b.float().abs().max()))
+    errs = {n: err(a, b) for n, a, b in zip(
+        ("out", "dq", "dk", "dv"), (out, *grads), (w_out, *want))}
+    errs["lse"] = err(lse, w_lse)
+    tols = {n: (LSE_ATOL if n == "lse" else ATOL[dtype]) * sc
+            for n, (_, sc) in errs.items()}
+    ms = time_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do, **kw),
+                 iters=5)
+    fwd_ms = time_ms(lambda: flash_attention_fwd(q, k, v, **kw))
+    plain_ms = time_ms(lambda: flash_attention_bwd_plain(
+        q, k, v, out, lse, do, **kw), iters=2, reps=2)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    do_t = do.transpose(1, 2)
+    causal = kw.get("causal", True)
+    lib = dict(library_ms=None, library_err=None, library_ok=None)
+    if not kw.get("attn_softcap") and not kw.get("window"):
+        def sdpa():
+            return _sdpa_gqa(qt, kt, vt, is_causal=causal)
+        got = torch.autograd.grad(sdpa(), (qt, kt, vt), do_t)
+        lib.update(_library_grad_errs(got, want, ATOL[dtype]),
+                   library_ms=backward_ms(sdpa, (qt, kt, vt), do_t))
+        del got
+    else:
+        lib["flex_bwd"] = (qt, kt, vt, do_t, kw.get("attn_softcap", 0.0),
+                           causal, kw.get("window", 0), want)
+    kv_len = Skv if kw.get("seq_len") is None else kw["seq_len"]
+    pairs = _live_pairs(Sq, Skv, kw.get("causal", True), kw.get("window", 0),
+                        kv_len)
+    # q, out, dout, dq and k, v, dk, dv: four of each size, and lse
+    nbytes = 4 * (q.numel() + k.numel()) * q.element_size() + lse.numel() * 4
+    dq_err = max(errs[n][0] for n in ("dq", "dk", "dv"))
+    row = dict(kernel="flash_attention_bwd", case=name, max_abs_err=dq_err,
+               errs={n: e for n, (e, _) in errs.items()},
+               scales={n: sc for n, (_, sc) in errs.items()},
+               ok=all(errs[n][0] <= tols[n] for n in errs),
+               ms=ms, fwd_lse_ms=fwd_ms, plain_ms=plain_ms, tol=ATOL[dtype],
+               **lib, **bound(nbytes, 2.5 * 4.0 * D * Hq * B * pairs, dtype))
+    del q, k, v, do, out, lse, grads, w_out, w_lse
+    return row
+
+
+def _library_grad_errs(got, want, atol: float) -> dict:
+    """A library backward's (dq, dk, dv), laid out (B, H, S, D), against
+    the plain backward's: the largest abs error, and whether each tensor
+    is within ``atol`` x its largest |want|."""
+    errs = [(float((g.transpose(1, 2).float() - w.float()).abs().max()),
+             float(w.float().abs().max())) for g, w in zip(got, want)]
+    return dict(library_err=max(e for e, _ in errs),
+                library_ok=all(e <= atol * sc for e, sc in errs))
+
+
+def flex_backward_times(rows) -> None:
+    """K5-bwd's library call at its softcap/window rows (SDPA has no
+    softcap): the gradient of the compiled ``flex_attention`` (the
+    softcap as a ``softcap * tanh(s / softcap)`` score_mod, the causal
+    mask and window as a block mask, GQA) through autograd, warmed and
+    timed by ``backward_ms``; its gradients held to the plain backward's
+    at the row's tolerance. Run with ``softcap_library_times``, after
+    every profiler pass. The port never calls it."""
+    from torch.nn.attention.flex_attention import create_block_mask
+    flex = _compiled_flex()
+    for r in rows:
+        if "flex_bwd" not in r:
+            continue
+        qt, kt, vt, do_t, softcap, causal, window, want = r.pop("flex_bwd")
+        B, _, Sq, _ = qt.shape
+
+        def score_mod(score, b, h, q_idx, kv_idx):
+            return softcap * torch.tanh(score / softcap)
+
+        def mask_mod(b, h, q_idx, kv_idx):
+            live = kv_idx <= q_idx if causal else kv_idx >= 0
+            return live & (q_idx - kv_idx < window) if window else live
+        block_mask = create_block_mask(mask_mod, B, None, Sq, kt.shape[2],
+                                       device="cuda")
+
+        def call():
+            return flex(qt, kt, vt, score_mod=score_mod if softcap else None,
+                        block_mask=block_mask, enable_gqa=True)
+        got = torch.autograd.grad(call(), (qt, kt, vt), do_t)
+        r.update(_library_grad_errs(got, want, r["tol"]))
+        del got
+        r["library_ms"] = backward_ms(call, (qt, kt, vt), do_t)
+        log(f"library flash_attention_bwd {r['case']:50s} flex_attention's "
+            f"backward: ms={r['library_ms']:.4f} max_abs_err="
+            f"{r['library_err']:.3e} within {r['tol']:.0e} x max|want|: "
+            f"{r['library_ok']} (K5-bwd ms {r['ms']:.4f})")
+    bad = [r["case"] for r in rows if r["library_ok"] is False]
+    if bad:
+        raise SystemExit(f"the library backward disagrees with the plain "
+                         f"backward at {bad}")
+
+
+# the training pair's shapes: the long-sequence run's (the main row), phase
+# 4h's full-width and reduced runs', and every train-capable family's
+TRAIN_ATTN_ROWS = [
+    ("llama3_8b_B1_S4096_bf16", 1, 4096, 4096, 32, 8, 128,
+     torch.bfloat16, {}),
+    ("llama3_8b_B8_S256_bf16", 8, 256, 256, 32, 8, 128, torch.bfloat16, {}),
+    ("llama3_8b_B1_S2048_bf16", 1, 2048, 2048, 32, 8, 128, torch.bfloat16,
+     {}),
+    ("zamba2_7b_B1_S2048_D112_bf16", 1, 2048, 2048, 32, 32, 112,
+     torch.bfloat16, {}),
+    ("gemma2_2b_B1_S4608_window4096_softcap50_D256_bf16", 1, 4608, 4608, 8,
+     4, 256, torch.bfloat16,
+     dict(window=GEMMA_WINDOW, attn_softcap=GEMMA_SOFTCAP)),
+    ("grok1_B1_S2048_G6_softcap30_bf16", 1, 2048, 2048, 48, 8, 128,
+     torch.bfloat16, dict(attn_softcap=30.0)),
+    ("whisper_encoder_S1500_bf16", 1, 1500, 1500, 6, 6, 64, torch.bfloat16,
+     dict(causal=False)),
+    ("whisper_cross_17x1500_bf16", 1, 17, 1500, 6, 6, 64, torch.bfloat16,
+     dict(causal=False)),
+    ("reduced_B4_S64_f32", 4, 64, 64, 4, 2, 32, torch.float32, {}),
+]
+
+
+def train_kernel_checks() -> dict:
+    """``flash_bwd_case`` at TRAIN_ATTN_ROWS; fails on any error past its
+    tolerance."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    rows = {}
+    for name, B, Sq, Skv, Hq, Hkv, D, dtype, kw in TRAIN_ATTN_ROWS:
+        r = flash_bwd_case(name, B, Sq, Skv, Hq, Hkv, D, dtype, gen, **kw)
+        lib = "flex_attention's at the end" if "flex_bwd" in r else \
+            f"{r['library_ms']:.4f} (SDPA's, max_abs_err " \
+            f"{r['library_err']:.3e})"
+        log(f"check flash_attention_bwd {name}: errs "
+            f"{ {n: f'{e:.3e}' for n, e in r['errs'].items()} } max|want| "
+            f"{ {n: f'{x:.3g}' for n, x in r['scales'].items()} } tol "
+            f"{r['tol']:.0e} (lse {LSE_ATOL:.0e}) x max|want|; K5-bwd "
+            f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"library_backward_ms={lib} K5-with-lse ms={r['fwd_lse_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}; bytes "
+            f"{r['bytes_ms']:.5f}, ops {r['ops_ms']:.5f})")
+        rows[name] = r
+        _free()
+    bad = [n for n, r in rows.items() if not r["ok"]]
+    if bad:
+        raise SystemExit(f"the training pair disagrees with its plain "
+                         f"versions at {bad}")
+    bad = [n for n, r in rows.items() if r["library_ok"] is False]
+    if bad:
+        raise SystemExit(f"SDPA's backward disagrees with the plain "
+                         f"backward at {bad}")
+    return rows
+
+
+LONG_TRAIN_SEQ, LONG_TRAIN_STEPS = 4096, 5
+# kernel path vs full-score path, from the same seed-0 parameters: step 0's
+# loss (read 2.06e-4 on the card) and one forward + backward's gradients,
+# each tensor's |got - want| / |want| in the 2-norm (the worst read 2.5e-2;
+# the kernel path rounds P to bf16 for P V, the full-score path keeps f32)
+LONG_LOSS_ATOL = 1e-3
+LONG_GRAD_RTOL = 5e-2
+
+
+def long_seq_train_run(smi: str) -> dict:
+    """llama3-8b, 8 of 32 layers at full width (bf16, remat "full"), B=1
+    S=LONG_TRAIN_SEQ, LONG_TRAIN_STEPS steps of ``make_train_step`` from
+    the same seed-0 parameters on one batch (so the loss falls step by
+    step; batches of random tokens move it more than 5 steps of training
+    do) on the kernel path (K5 with lse, K5-bwd) and on the full-score
+    path (``attn_backend="masked"``, the plain attention through
+    autograd), in turns in this call: each step's host time, a profiled
+    step's device-busy share, the step's peak memory and the peak of one
+    forward + backward alone at the seed-0 parameters (the optimizer's
+    temporaries set the step's peak on both paths); then the two paths'
+    gradients at those parameters (``long_grad_check``). Fails unless the
+    launches are what the config implies, the losses are finite and
+    falling, step 0's losses agree within LONG_LOSS_ATOL, every gradient
+    tensor within LONG_GRAD_RTOL and the kernel path's forward + backward
+    peak is below the full-score path's."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import SyntheticLM
+    base = dataclasses.replace(get_config("llama3-8b"), num_layers=8)
+    S = LONG_TRAIN_SEQ
+    batch = {"tokens": torch.from_numpy(SyntheticLM(
+        base.vocab_size, seed=0).batch(0, 1, S)).cuda()}
+    out = {}
+    for label, cfg in (("kernel", base),
+                       ("masked", dataclasses.replace(
+                           base, attn_backend="masked"))):
+        model = build(cfg, device="cuda")
+        ocfg = opt_config_for(cfg, lr=3e-4)
+        params, opt = init_state(model, ocfg, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        grads, _ = _value_and_grad(model.loss, params, batch)
+        torch.cuda.synchronize()
+        fb_peak = torch.cuda.max_memory_allocated() / 2**30
+        del grads
+        _free()
+        step = make_train_step(model, ocfg, donate=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms = [], []
+        with plain_calls() as plain:
+            zero_launches()
+            for _ in range(LONG_TRAIN_STEPS):
+                t0 = time.perf_counter()
+                params, opt, m = step(params, opt, batch)
+                losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            launches = read_launches()
+        plain = dict(plain)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check_train_paths(f"long {label}", cfg, launches, plain,
+                          LONG_TRAIN_STEPS)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms, busy = busy_share(prof, "")
+        del prof, params, opt, m, model, step
+        _free()
+        steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+        out[label] = dict(losses=losses, step_ms=step_ms, steady_step_ms=steady,
+                          busy_ms=busy_ms, busy_share=busy,
+                          profiled_step_ms=prof_ms, peak_gib=peak,
+                          fwd_bwd_peak_gib=fb_peak, launches=launches,
+                          plain=plain)
+        log(f"train[llama3-8b 8L B=1 S={S} {label}] losses {losses}; step "
+            f"host ms {[round(x, 2) for x in step_ms]} (median of steps 1+ "
+            f"{steady:.2f}); profiled step {prof_ms:.2f} ms, device busy "
+            f"{busy_ms:.2f} ms, share {busy:.3f}; peak {peak:.2f} GiB a "
+            f"step, {fb_peak:.2f} GiB forward + backward alone; launches "
+            f"{ {n: c for n, c in launches.items() if c} }; plain calls "
+            f"{plain} | {smi}")
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            raise SystemExit(f"train[long {label}]: losses not finite and "
+                             f"falling: {losses}")
+    k, f = out["kernel"], out["masked"]
+    g = out["grad_rel_err"] = long_grad_check(base, batch)
+    d0 = abs(k["losses"][0] - f["losses"][0])
+    log(f"train[llama3-8b 8L B=1 S={S}] kernel path against full scores: "
+        f"step {k['steady_step_ms']:.2f} vs {f['steady_step_ms']:.2f} ms, "
+        f"busy {k['busy_share']:.3f} vs {f['busy_share']:.3f}, forward + "
+        f"backward peak {k['fwd_bwd_peak_gib']:.2f} vs "
+        f"{f['fwd_bwd_peak_gib']:.2f} GiB, step peak {k['peak_gib']:.2f} vs "
+        f"{f['peak_gib']:.2f} GiB; step 0 loss |diff| {d0:.3g} (tolerance "
+        f"{LONG_LOSS_ATOL}); gradients at the seed-0 parameters, "
+        f"|diff| / |full-score| a tensor: worst {g['worst']:.3e} "
+        f"({g['worst_tensor']}), median {g['median']:.3e} (tolerance "
+        f"{LONG_GRAD_RTOL}) | {smi}")
+    if d0 > LONG_LOSS_ATOL or not g["worst"] <= LONG_GRAD_RTOL or \
+            not k["fwd_bwd_peak_gib"] < f["fwd_bwd_peak_gib"]:
+        raise SystemExit("train[long]: the kernel path's loss, gradients or "
+                         "memory are off against the full-score path")
+    return out
+
+
+def long_grad_check(cfg, batch) -> dict:
+    """One forward + backward of ``cfg`` on ``batch`` at the seed-0
+    parameters through the kernel path and through the full-score path
+    (``attn_backend="masked"``): each gradient tensor's |kernel -
+    full-score| / |full-score| in the 2-norm; the worst (and its tensor)
+    and the median."""
+    kernel = build(cfg, device="cuda")
+    masked = build(dataclasses.replace(cfg, attn_backend="masked"),
+                   device="cuda")
+    params = kernel.init(0)
+    got, _ = _value_and_grad(kernel.loss, params, batch)
+    want, _ = _value_and_grad(masked.loss, params, batch)
+    rel = sorted((float((a.float() - b.float()).norm() /
+                        b.float().norm().clamp_min(1e-30)), n)
+                 for (n, a), (_, b) in zip(_flatten_with_names(got),
+                                           _flatten_with_names(want)))
+    del params, got, want
+    _free()
+    return dict(worst=rel[-1][0], worst_tensor=rel[-1][1],
+                median=rel[len(rel) // 2][0])
 
 
 def train_reduced_runs() -> dict:
@@ -1860,8 +2264,7 @@ def train_reduced_runs() -> dict:
             runs.append((f"{arch}+adamw",
                          dataclasses.replace(cfg, optimizer="adamw")))
         for label, over in runs:
-            r = train_run(label, ["--arch", arch] + TRAIN_REDUCED, cfg=over)
-            _need_plain(label, cfg.family, r["plain"])
+            r = train_run(label, over or cfg, TRAIN_REDUCED)
             first, last = r["steps"][0]["loss"], r["steps"][-1]["loss"]
             falls = last < first
             log(f"train[{label}] reduced losses "
@@ -1873,7 +2276,7 @@ def train_reduced_runs() -> dict:
                 raise SystemExit(f"train[{label}]: last loss {last} not below "
                                  f"the first {first}")
             out[label] = dict(first=first, last=last, falls=falls,
-                              plain=r["plain"])
+                              plain=r["plain"], launches=r["launches"])
             _free()
     return out
 
@@ -1887,7 +2290,8 @@ def train_resume_check() -> dict:
     shutil.rmtree(root, ignore_errors=True)
     base = ["--arch", "llama3-8b", "--reduced", "--steps", "4", "--batch",
             "4", "--seq", "64", "--log-every", "1", "--ckpt-every", "2"]
-    full = train_run("ckpt", base + ["--ckpt-dir", str(root / "full")])
+    cfg = get_config("llama3-8b").reduced()
+    full = train_run("ckpt", cfg, base + ["--ckpt-dir", str(root / "full")])
     steps = CheckpointManager(str(root / "full")).all_steps()
     if steps != [2, 4]:
         raise SystemExit(f"train[ckpt]: checkpoints {steps}, want [2, 4]")
@@ -1895,7 +2299,6 @@ def train_resume_check() -> dict:
                     root / "resume" / "step_0000000002")
     # the restored tensors on the card carry the saved bytes
     cm = CheckpointManager(str(root / "resume"))
-    cfg = get_config("llama3-8b").reduced()
     model = build(cfg, device="cuda")
     params, opt = init_state(model, opt_config_for(cfg), 0)
     back = cm.restore(2, {"params": params, "opt": opt})
@@ -1908,8 +2311,9 @@ def train_resume_check() -> dict:
         raise SystemExit(f"train[resume]: restored tensors differ from the "
                          f"saved ones: {bad[:5]}")
     del params, opt, back
-    resumed = train_run("resume", base + ["--ckpt-dir", str(root / "resume"),
-                                          "--resume"])
+    resumed = train_run("resume", cfg, base + ["--ckpt-dir",
+                                               str(root / "resume"),
+                                               "--resume"])
     a, b = full["metrics"]["loss"], resumed["metrics"]["loss"]
     log(f"train[resume] {len(named)} tensors restored on the card, sha256 "
         f"equal to the manifest; step 3 loss uninterrupted {a!r} resumed "
@@ -1924,9 +2328,9 @@ def train_resume_check() -> dict:
 
 def train_moe_8bit_check() -> dict:
     """grok-1 reduced, adamw8bit, 4 steps: moe_lb > 0, loss >= ce."""
-    r = train_run("grok-1 8bit", ["--arch", "grok-1-314b", "--reduced",
-                                  "--steps", "4", "--batch", "4", "--seq",
-                                  "64", "--log-every", "1"])
+    r = train_run("grok-1 8bit", get_config("grok-1-314b").reduced(),
+                  ["--steps", "4", "--batch", "4", "--seq", "64",
+                   "--log-every", "1"])
     m = r["metrics"]
     log(f"train[grok-1 8bit] last metrics {m}")
     if not (m["moe_lb"] > 0 and m["loss"] >= m["ce"]):
@@ -1955,8 +2359,7 @@ def train_full_width(label: str, cfg, argv: list, smi: str) -> dict:
         f"{cfg.vocab_size}, {n_params / 1e9:.3f} G parameters: bf16 weights "
         f"{weights_gib:.2f} GiB, state (bf16 p and g, f32 m and v) "
         f"{n_params * 12 / 2**30:.1f} GiB | {smi}")
-    r = train_run(label, argv, cfg=cfg)
-    _need_plain(label, cfg.family, r["plain"])
+    r = train_run(label, cfg, argv)
     losses = [st["loss"] for st in r["steps"]]
     if not sum(losses[-3:]) / 3 < losses[0]:
         raise SystemExit(f"train[{label}]: mean of the last three losses not "
@@ -2007,7 +2410,7 @@ def train_full_width(label: str, cfg, argv: list, smi: str) -> dict:
                optimizer_ms=min(opt_ms), optimizer_share=opt_share,
                weights_gib=weights_gib, peak_gib=r["peak_gib"],
                matmul_floor_ms=mm_floor, optimizer_floor_ms=opt_floor,
-               plain=r["plain"])
+               plain=r["plain"], launches=r["launches"])
     log(f"train[{label}] losses {losses}")
     log(f"train[{label}] step host ms {[round(x, 2) for x in step_ms]} "
         f"(median of steps 1+ {steady:.2f} ms, {tokens / steady * 1e3:.0f} "
@@ -2084,7 +2487,8 @@ def train_phase(smi: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    out = dict(reduced=train_reduced_runs(), resume=train_resume_check(),
+    out = dict(kernel_rows=train_kernel_checks(),
+               reduced=train_reduced_runs(), resume=train_resume_check(),
                grok_8bit=train_moe_8bit_check())
     out["llama3_8b_8_layers"] = train_full_width(
         "llama3-8b 8L", dataclasses.replace(get_config("llama3-8b"),
@@ -2094,6 +2498,7 @@ def train_phase(smi: str) -> dict:
         "mamba2-780m", get_config("mamba2-780m"),
         ["--arch", "mamba2-780m"] + TRAIN_FULL, smi)
     out["card_vs_cpu"] = card_cpu_train_check()
+    out["long"] = long_seq_train_run(smi)
     log(f"train phase {time.perf_counter() - t0:.1f}s")
     return out
 
@@ -2462,14 +2867,12 @@ def mesh_train_reduced(mesh) -> dict:
     argv = ["--arch", "llama3-8b", "--reduced", "--steps", str(steps),
             "--batch", str(B), "--seq", str(S), "--log-every", "1",
             "--lr", str(MESH_TRAIN_LR), "--ckpt-every", "100"]
-    meshed = train_run("mesh reduced", argv + ["--ckpt-dir",
-                                               str(root / "mesh")],
-                       mesh=mesh)
-    single = train_run("single reduced", argv + ["--ckpt-dir",
-                                                 str(root / "single")])
-    _need_plain("mesh reduced", "dense", meshed["plain"])
-    # the single path's steps replayed for the near-eps gradients
     cfg = get_config("llama3-8b").reduced()
+    meshed = train_run("mesh reduced", cfg,
+                       argv + ["--ckpt-dir", str(root / "mesh")], mesh=mesh)
+    single = train_run("single reduced", cfg,
+                       argv + ["--ckpt-dir", str(root / "single")])
+    # the single path's steps replayed for the near-eps gradients
     model = build(cfg, device="cuda")
     ocfg = opt_config_for(cfg, lr=cosine_schedule(MESH_TRAIN_LR,
                                                   steps // 10, steps))
@@ -2536,13 +2939,13 @@ def mesh_train_ckpt(mesh) -> dict:
     shutil.rmtree(root, ignore_errors=True)
     base = ["--arch", "llama3-8b", "--reduced", "--steps", "4", "--batch",
             "4", "--seq", "64", "--log-every", "1", "--ckpt-every", "2"]
-    full = train_run("mesh ckpt", base + ["--ckpt-dir", str(root / "full")],
-                     mesh=mesh)
+    cfg = get_config("llama3-8b").reduced()
+    full = train_run("mesh ckpt", cfg,
+                     base + ["--ckpt-dir", str(root / "full")], mesh=mesh)
     if CheckpointManager(str(root / "full")).all_steps() != [2, 4]:
         raise SystemExit("mesh train[ckpt]: checkpoints are not [2, 4]")
     shutil.copytree(root / "full" / "step_0000000002",
                     root / "resume" / "step_0000000002")
-    cfg = get_config("llama3-8b").reduced()
     ctx = ShardCtx.for_mesh(mesh, "train")
     model = build(cfg, ctx, device="cuda")
     ocfg = opt_config_for(cfg)
@@ -2563,9 +2966,9 @@ def mesh_train_ckpt(mesh) -> dict:
         raise SystemExit(f"mesh train[ckpt]: restored tensors differ from "
                          f"the saved ones: {bad[:5]}")
     del params, opt, back, tpl
-    resumed = train_run("mesh resume", base + ["--ckpt-dir",
-                                               str(root / "resume"),
-                                               "--resume"], mesh=mesh)
+    resumed = train_run("mesh resume", cfg,
+                        base + ["--ckpt-dir", str(root / "resume"),
+                                "--resume"], mesh=mesh)
     a, b = full["metrics"]["loss"], resumed["metrics"]["loss"]
     log(f"mesh train[ckpt] saved on the (1, 1) mesh at steps 2 and 4; "
         f"{len(named)} DTensors restored with shardings=, sha256 equal to "
@@ -2581,7 +2984,8 @@ def mesh_train_ckpt(mesh) -> dict:
 def mesh_train_full(mesh, single: dict, smi: str) -> dict:
     """llama3-8b at full width, 8 of 32 layers (bf16, as phase 4h), 10
     steps through ``main(..., mesh=)`` on the (1, 1) mesh (finite losses,
-    the mean of the last three below the first; K4/K5/K6 0 launches),
+    the mean of the last three below the first; K5 and K5-bwd launched as
+    the config implies, K4/K6 0),
     then one profiled meshed step's device-busy share; the single path's
     numbers are phase 4h's in this call."""
     from torch.profiler import ProfilerActivity, profile
@@ -2590,8 +2994,7 @@ def mesh_train_full(mesh, single: dict, smi: str) -> dict:
     layers = 8
     cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=layers)
     label = f"llama3-8b {layers}L mesh"
-    r = train_run(label, TRAIN_FULL + ["--lr", "3e-4"], cfg=cfg, mesh=mesh)
-    _need_plain(label, cfg.family, r["plain"])
+    r = train_run(label, cfg, TRAIN_FULL + ["--lr", "3e-4"], mesh=mesh)
     losses = [st["loss"] for st in r["steps"]]
     if not sum(losses[-3:]) / 3 < losses[0]:
         raise SystemExit(f"mesh train[{label}]: mean of the last three "
@@ -3324,10 +3727,18 @@ def main(argv=None) -> int:
             log(f"ptxas {src.stem}: {injected} warpgroup.arrive injected by "
                 f"the compiler around wgmma (C7519)")
 
+    last = [time.perf_counter()]
+
+    def took(what: str) -> None:
+        now = time.perf_counter()
+        log(f"{what} took {now - last[0]:.1f}s")
+        last[0] = now
+
     checks = kernel_checks()
     ssd = ssd_checks()
     hyb_rows = hybrid_encdec_kernel_checks()
     mv_rows = moe_vlm_kernel_checks()
+    took("kernel checks (phase 3)")
     chunked_args = ["--chunked-prefill", "--prefill-chunk", "8"]
     host = serve_run("llama3-8b", "host_prefill", [])
     chunked = serve_run("llama3-8b", "chunked_prefill", chunked_args)
@@ -3341,6 +3752,7 @@ def main(argv=None) -> int:
         "llama3-8b", LONG_PROMPT,
         get_config("llama3-8b").num_layers * checks["s2048"]["ms"])
     streams = streams_phase(chunked_args)
+    took("llama3-8b serve, logits, long prompt, streams")
     dense = dense_configs_phase(chunked_args, checks["gemma"])
     ssm_host = serve_run("mamba2-780m", "host_prefill", [])
     ssm_chunked = serve_run("mamba2-780m", "chunked_prefill", chunked_args)
@@ -3351,13 +3763,16 @@ def main(argv=None) -> int:
             f"host prefill (want {layers} layers x 4 prompts), "
             f"{ssm_chunked['ssd_chunk']} on chunked prefill (want 0)")
     ssm_long = ssm_long_prompt_check(ssd["s2048"]["ms"])
+    took("dense configs and mamba2 serve")
     hybrid = hybrid_phase(chunked_args, hyb_rows)
     encdec = encdec_phase(chunked_args)
     moe_vlm = moe_vlm_phase(chunked_args)
     smoke = smoke_phase()
+    took("hybrid, encdec, moe/vlm and --smoke serve")
     training = train_phase(smi)
     mesh = mesh_phase()
-    mesh_train_phase(smi, training["llama3_8b_8_layers"])
+    mesh_train = mesh_train_phase(smi, training["llama3_8b_8_layers"])
+    took("train, mesh and mesh train")
     new_runs = {k: v for phase in (hybrid, encdec, moe_vlm)
                 for k, v in phase.items() if k.endswith("_prefill")}
     new_runs.update({f"smoke_{arch.replace('-', '_')}": launched
@@ -3370,12 +3785,16 @@ def main(argv=None) -> int:
     paths["persistent_drain"] = mega_vs_scan_run()
     paths["persistent_drain_prof"] = full_width_system_run()
     probe = preemption_probe()
+    took("tile kernels and the mega paths")
     missing = [n for n in TILE_KERNELS if paths[n][n] == 0]
     if missing:
         raise SystemExit(f"tile path never launched: {missing}")
     softcap_library_times(checks["cases"] + [
         r for r in mv_rows.values() if r["kernel"] in ATTENTION] +
         list(mesh["shards"].values()))
+    took("flex_attention, forward")
+    flex_backward_times(training["kernel_rows"].values())
+    took("flex_attention, backward")
 
     kernels = []
     for name, spec in KERNELS.items():
@@ -3425,6 +3844,11 @@ def main(argv=None) -> int:
             if name == "flash_attention":
                 extra["launches_mesh_prefill"] = \
                     mesh["model"]["prefill_launches"][name]
+                # the training forward (with its lse) on the long train run
+                extra["launches_train_long_seq"] = \
+                    training["long"]["kernel"]["launches"][name]
+                extra["lse_max_abs_err_train"] = max(
+                    r["errs"]["lse"] for r in training["kernel_rows"].values())
                 big = checks["s2048"]
                 extra["at_" + big["case"]] = {
                     k: big[k] for k in ("ms", "plain_ms", "bound_ms",
@@ -3438,6 +3862,37 @@ def main(argv=None) -> int:
                     tokens=GEMMA_LONG, launches=g_long["launches"]["kernel"],
                     prefill_ms=g_long["prefill_ms"],
                     k5_share=g_long["k5_share"])
+        elif name == "flash_attention_bwd":
+            # launches on the long-sequence train run (the main row's
+            # shape) and on every other train run; the other shapes beside
+            rows = training["kernel_rows"]
+            row = rows[TRAIN_ATTN_ROWS[0][0]]
+            launches = training["long"]["kernel"]["launches"][name]
+            extra["shape"] = row["case"]
+            extra["fwd_lse_ms"] = row["fwd_lse_ms"]
+            extra["errs"] = row["errs"]
+            extra["library_err"] = row["library_err"]
+            for r in rows.values():
+                if r is not row:
+                    extra["at_" + r["case"]] = {
+                        k: r[k] for k in ("ms", "fwd_lse_ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms", "library_err",
+                                          "max_abs_err")}
+            extra["launches_train_reduced"] = {
+                label: v["launches"][name]
+                for label, v in training["reduced"].items()}
+            extra["launches_train_llama3_8b_8_layers"] = \
+                training["llama3_8b_8_layers"]["launches"][name]
+            extra["launches_mesh_train_llama3_8b_8_layers"] = \
+                mesh_train["full"]["launches"][name]
+            long = training["long"]
+            extra["long_seq_train"] = {
+                path: {k: long[path][k] for k in (
+                    "steady_step_ms", "busy_share", "peak_gib",
+                    "fwd_bwd_peak_gib", "losses")}
+                for path in ("kernel", "masked")}
+            extra["long_seq_train"]["grad_rel_err"] = long["grad_rel_err"]
         elif name == "ssd_chunk":
             # launches on mamba2-780m's serve runs; times at the serve
             # shape, the 2048-token and the B=4 S=256 shapes beside them

@@ -4,7 +4,9 @@
 # for CUDA tensors and counts launches, plus the plain PyTorch version the
 # wrapper uses for CPU tensors).
 #
-#   flash_attention/   blockwise causal/window/softcap GQA prefill attention
+#   flash_attention/   blockwise causal/window/softcap GQA attention (K5) and
+#                      its backward (K5-bwd), differentiable through
+#                      flash_attention_grad (an autograd.Function)
 #   decode_attention/  flash-decoding against a KV cache (split + merge)
 #   ssd_scan/          Mamba2 SSD intra-chunk output and chunk-end states
 #                      (K6); ops.ssd adds the inter-chunk recurrence
@@ -15,16 +17,19 @@ import torch
 
 
 def refuse_grad(name: str, *tensors) -> None:
-    """Raise where autograd would record a call of kernel ``name``: the
-    kernels write their outputs through raw pointers and have no backward,
-    so their outputs would carry no gradient. Train mode takes the plain
-    versions (differentiable PyTorch); call a wrapper under
-    ``torch.no_grad()``, or with tensors that do not require grad."""
+    """Raise where autograd would record a call of the forward-only kernel
+    wrapper ``name`` (K4, K5's serving ``flash_attention``, K6): they write
+    their outputs through raw pointers outside autograd, so their outputs
+    would carry no gradient. Train mode takes ``flash_attention_grad`` for
+    attention (K5 with its lse and K5-bwd inside an autograd.Function) and
+    the plain SSD; call a forward-only wrapper under ``torch.no_grad()``,
+    or with tensors that do not require grad."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name} has no backward: an input requires grad with grad mode "
             f"on, and the kernel's output would carry no gradient (train "
-            f"through the plain version, or call it under torch.no_grad())")
+            f"through flash_attention_grad, or call it under "
+            f"torch.no_grad())")
 
 
 def shape_only(*tensors) -> bool:

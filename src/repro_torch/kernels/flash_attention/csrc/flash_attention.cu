@@ -1,4 +1,5 @@
-// Blockwise causal flash attention, forward only — Hopper (sm_90a), CUDA C++.
+// Blockwise causal flash attention, forward (K5) and backward (K5-bwd, at the
+// end of the file) — Hopper (sm_90a), CUDA C++.
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py::_flash_kernel
 // (flash_attention_pallas). Same function: q (B,S,Hq,D) against k/v
@@ -63,9 +64,14 @@ constexpr float NEG = -1e30f;    // the reference's NEG_INF
 // ---- 16-byte vector loads/stores (the f32 path) ---------------------------
 template <typename T> struct Vec;
 template <> struct Vec<float> { static constexpr int N = 4; };
+template <> struct Vec<__nv_bfloat16> { static constexpr int N = 8; };
 
 __device__ __forceinline__ void unpack(uint32_t w, float* out, float) {
   out[0] = __uint_as_float(w);
+}
+__device__ __forceinline__ void unpack(uint32_t w, float* out, __nv_bfloat16) {
+  out[0] = __uint_as_float(w << 16);
+  out[1] = __uint_as_float(w & 0xffff0000u);
 }
 
 template <typename T>
@@ -80,6 +86,11 @@ __device__ __forceinline__ void load16(const T* p, float* out) {
 
 __device__ __forceinline__ uint32_t pack(const float* in, float) {
   return __float_as_uint(in[0]);
+}
+__device__ __forceinline__ uint32_t pack(const float* in, __nv_bfloat16) {
+  const uint32_t a = __bfloat16_as_ushort(__float2bfloat16_rn(in[0]));
+  const uint32_t b = __bfloat16_as_ushort(__float2bfloat16_rn(in[1]));
+  return a | (b << 16);
 }
 
 template <typename T>
@@ -109,8 +120,9 @@ template <int D, typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 int S, int Skv, int Hq, int Hkv, int causal, int window,
-                 float softcap, int kv_len, float scale) {
+                 float* __restrict__ lse, int S, int Skv, int Hq, int Hkv,
+                 int causal, int window, float softcap, int kv_len,
+                 float scale) {
   constexpr int TPR = threads_per_row(D);
   constexpr int BQ = THREADS / TPR;
   constexpr int VN = Vec<T>::N;
@@ -233,13 +245,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* op = o + ((size_t)(b * S + qpos) * Hq + h) * D;
 #pragma unroll
     for (int c = 0; c < NV; ++c) store16(op + (c * TPR + part) * VN, acc + c * VN);
+    // the reference's lse: m + log(max(l, 1e-30)); a row with no live key
+    // keeps m = -1e30, which the log does not move in f32
+    if (lse != nullptr && part == 0)
+      lse[((size_t)b * Hq + h) * S + qpos] = m + logf(fmaxf(l, 1e-30f));
   }
 }
 
 template <int D, typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int Skv, int Hq, int Hkv, int causal, int window, float softcap,
-           int kv_len, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int Skv, int Hq, int Hkv, int causal, int window,
+           float softcap, int kv_len, float scale, cudaStream_t stream) {
   constexpr int BQ = THREADS / threads_per_row(D);
   const int smem = 2 * BK * D * (int)sizeof(T);
   auto kern = flash_fwd_kernel<D, T>;
@@ -249,21 +265,22 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   dim3 grid((S + BQ - 1) / BQ, Hq, B);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, Skv, Hq, Hkv, causal,
-      window, softcap, kv_len, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, Skv, Hq, Hkv,
+      causal, window, softcap, kv_len, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_d(int D, const void* q, const void* k, const void* v, void* o,
-             int B, int S, int Skv, int Hq, int Hkv, int causal, int window,
-             float softcap, int kv_len, float scale, cudaStream_t stream) {
+             float* lse, int B, int S, int Skv, int Hq, int Hkv, int causal,
+             int window, float softcap, int kv_len, float scale,
+             cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<32, T>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
-    case 64: return launch<64, T>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
-    case 112: return launch<112, T>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
-    case 128: return launch<128, T>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
-    case 256: return launch<256, T>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
+    case 32: return launch<32, T>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
+    case 64: return launch<64, T>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
+    case 112: return launch<112, T>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
+    case 128: return launch<128, T>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
+    case 256: return launch<256, T>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
     default: return -1;
   }
 }
@@ -542,6 +559,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // x = tanh(s * scale / softcap) * softcap * log2(e). Masked scores are NEG.
 struct TcArgs {
   __nv_bfloat16* o;
+  float* lse;          // (B, Hq, S) log-sum-exp of each row, or null
   int B, S, Hq, Hkv, causal, window, kv_len;
   int n_qb;            // query blocks a (sequence, head): ceil(S / BQ)
   float softcap;       // > 0: apply the tanh softcap
@@ -854,11 +872,18 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_arrive(q_empty);
       }
 
-      // the quad's partial row sums -> full row sums; normalize and store
+      // the quad's partial row sums -> full row sums; the log-sum-exp
+      // in natural units (m is a log2 maximum: ln(2) m + ln(l); a row with
+      // no live key keeps the reference's -1e30); normalize and store
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        const int row = r0 + 8 * r;
+        if (a.lse != nullptr && t == 0 && row < a.S)
+          a.lse[((size_t)it.b * a.Hq + it.h) * a.S + row] =
+              m[r] <= NEG ? NEG
+                          : m[r] * 0.6931471805599453f + logf(fmaxf(l[r], 1e-30f));
         l[r] = 1.f / fmaxf(l[r], 1e-30f);
       }
 #pragma unroll
@@ -938,9 +963,10 @@ int encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
 int g_smem_request = 0;
 
 template <int D, int BKT>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
-              int S, int Skv, int Hq, int Hkv, int causal, int window,
-              float softcap, int kv_len, float scale, cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int S, int Skv, int Hq, int Hkv, int causal,
+              int window, float softcap, int kv_len, float scale,
+              cudaStream_t stream) {
   const int smem = g_smem_request > 0 ? g_smem_request : TcCfg<D>::SMEM;
   auto kern = flash_fwd_wgmma_kernel<D, BKT>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -957,6 +983,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
   constexpr float LOG2E = 1.4426950408889634f;
   TcArgs a;
   a.o = static_cast<__nv_bfloat16*>(o);
+  a.lse = lse;
   a.S = S; a.Hq = Hq; a.Hkv = Hkv; a.causal = causal; a.window = window;
   a.kv_len = kv_len; a.softcap = softcap;
   a.scale_log2 = scale * LOG2E;
@@ -976,43 +1003,454 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
 }
 
 int launch_bf16(int D, const void* q, const void* k, const void* v, void* o,
-                int B, int S, int Skv, int Hq, int Hkv, int causal, int window,
-                float softcap, int kv_len, float scale, cudaStream_t stream) {
+                float* lse, int B, int S, int Skv, int Hq, int Hkv, int causal,
+                int window, float softcap, int kv_len, float scale,
+                cudaStream_t stream) {
   // a prompt that one consumer warpgroup holds takes 64-key stages (chosen
   // on the query length: a short prompt against 1500 encoder frames too)
   const bool short_s = S <= WG_ROWS;
   switch (D) {
-    case 32: return short_s ? launch_tc<32, BK_SHORT>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream)
-                            : launch_tc<32, BK_D32>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
-    case 64: return short_s ? launch_tc<64, BK_SHORT>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream)
-                            : launch_tc<64, BK_D64>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
-    case 112: return short_s ? launch_tc<112, BK_SHORT>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream)
-                             : launch_tc<112, BK_D112>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
-    case 128: return short_s ? launch_tc<128, BK_SHORT>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream)
-                             : launch_tc<128, BK_D128>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
-    case 256: return launch_tc<256, BK_D256>(q, k, v, o, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
+    case 32: return short_s ? launch_tc<32, BK_SHORT>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream)
+                            : launch_tc<32, BK_D32>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
+    case 64: return short_s ? launch_tc<64, BK_SHORT>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream)
+                            : launch_tc<64, BK_D64>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
+    case 112: return short_s ? launch_tc<112, BK_SHORT>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream)
+                             : launch_tc<112, BK_D112>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
+    case 128: return short_s ? launch_tc<128, BK_SHORT>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream)
+                             : launch_tc<128, BK_D128>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
+    case 256: return launch_tc<256, BK_D256>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, causal, window, softcap, kv_len, scale, stream);
+    default: return ERR_HEAD_DIM;
+  }
+}
+
+// ---- K5-bwd: the backward (FFMA, f32 accumulation) -------------------------
+//
+// Replaces: src/repro/models/attention.py::_flash_bwd_impl, the backward of
+// flash_xla's custom VJP (XLA in the reference; no Pallas kernel). Same
+// function: with z = q·k·scale, s = softcap(z), -1e30 where masked, and
+// p = exp(s - lse) from the forward's lse: delta = rowsum(dO∘o),
+// dV = Σ pᵀ dO, dS = p∘(dO Vᵀ - delta) times the softcap's 1 - tanh²(z/cap),
+// 0 where masked, times scale; dQ = dS K, dK = dSᵀ Q, the G query heads of
+// a kv head summed into its dK and dV. Not its block-by-block schedule:
+// three launches, each CTA the only writer of its outputs (no atomics, so
+// a run repeats bit for bit):
+// (a) delta, one warp a row;
+// (b) dK/dV, one CTA a (kv block, kv head, sequence): it keeps its keys' K
+//     and V tiles and its dK/dV accumulators, and walks the G query heads
+//     and, for each, the query blocks whose causal/window band reaches its
+//     keys (the pairs block_pairs gives), recomputing S, P and dS;
+// (c) dQ, one CTA a (query block, head, sequence) over its band's kv blocks.
+// What bounds it on the H100: five products of the forward's shape (2.5x
+// its operations), so operations at training lengths. This first version
+// runs every product in FFMA from f32 tiles in shared memory (bf16 inputs
+// widened on load): exact f32 arithmetic (the f32 instance must meet the
+// CPU's train step at 1e-5), but for bf16 far from the tensor cores' bound
+// (PERF.md; wgmma/TMA as in the forward is later work). Layout: a 16 x 16
+// thread grid; a thread holds a strided micro-tile of S and dP (rows
+// ty + 16a, keys tx + 16b) and strided columns tx + 16c of its accumulator
+// rows; tiles are rows of D + 1 floats (an odd stride: the 16 rows a warp
+// reads lie in 16 banks). D = 256 takes 32-row tiles (shared memory).
+// A row with no live key (only with kv_len) has lse = -1e30 and so p = 1 on
+// the masked keys of the tiles visited, as the reference's p on the keys of
+// its blocks: that row's dV follows each one's visited set (no training
+// path has such a row).
+
+constexpr int BWD_THREADS = 256;
+template <int D> struct BwdCfg { static constexpr int BQ = 64, BKV = 64; };
+template <> struct BwdCfg<256> { static constexpr int BQ = 32, BKV = 32; };
+
+struct BwdArgs {
+  const void *q, *k, *v, *o, *dO;
+  const float* lse;    // (B, Hq, S)
+  float* delta;        // (B, Hq, S), written by launch (a)
+  void *dq, *dk, *dv;
+  int B, S, Skv, Hq, Hkv, causal, window, kv_len;
+  float softcap, scale;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// rows [r0, r0 + R) of head h of a contiguous (B, L, H, D) tensor into an
+// f32 tile of rows of D + 1; rows at or past L are zeros
+template <int D, int R, typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int b,
+                                          int r0, int L, int H, int h) {
+  constexpr int VN = Vec<T>::N;
+  constexpr int VPR = D / VN;
+  for (int idx = threadIdx.x; idx < R * VPR; idx += BWD_THREADS) {
+    const int r = idx / VPR;
+    const int c = idx % VPR;
+    float f[VN];
+    if (r0 + r < L) {
+      load16(src + ((size_t)(b * L + r0 + r) * H + h) * D + c * VN, f);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VN; ++e) f[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < VN; ++e) dst[r * (D + 1) + c * VN + e] = f[e];
+  }
+}
+
+// S = Q Kᵀ and dP = dO Vᵀ of a (query block q0, kv block k0) pair on the
+// thread's micro-tile, then P (into sP unless null) and the masked, scaled
+// dS (into sdS), rows of BKV + 1. Masked keys and rows at or past S get
+// p = dS = 0.
+template <int D, int BQ, int BKV>
+__device__ __forceinline__ void bwd_scores(
+    const BwdArgs& a, const float* sQ, const float* sdO, const float* sK,
+    const float* sV, const float* sL, const float* sDl, float* sP, float* sdS,
+    int q0, int k0) {
+  constexpr int LD = D + 1, LP = BKV + 1, MI = BQ / 16, NJ = BKV / 16;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  float sc[MI][NJ], dp[MI][NJ];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) sc[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float qa[MI], oa[MI], kb[NJ], vb[NJ];
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      qa[i] = sQ[(ty + 16 * i) * LD + d];
+      oa[i] = sdO[(ty + 16 * i) * LD + d];
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      kb[j] = sK[(tx + 16 * j) * LD + d];
+      vb[j] = sV[(tx + 16 * j) * LD + d];
+    }
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        sc[i][j] = fmaf(qa[i], kb[j], sc[i][j]);
+        dp[i][j] = fmaf(oa[i], vb[j], dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    const int row = ty + 16 * i;
+    const int qp = q0 + row;
+    const float lse = sL[row];
+    const float dlt = sDl[row];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int col = tx + 16 * j;
+      const int kp = k0 + col;
+      const float z = sc[i][j] * a.scale;
+      float x = z, dcap = 1.f;
+      if (a.softcap > 0.f) {
+        const float t = tanhf(z / a.softcap);
+        x = t * a.softcap;
+        dcap = 1.f - t * t;
+      }
+      bool ok = kp < a.kv_len;
+      if (a.causal) ok = ok && kp <= qp;
+      if (a.window > 0) ok = ok && (qp - kp) < a.window;
+      // p = 0 on masked keys: exp(-1e30 - lse) is 0 on a row with a live
+      // key, and a row without one (lse = -1e30) gives no key a gradient
+      const bool live = ok && qp < a.S;
+      const float p = live ? expf(x - lse) : 0.f;
+      const float ds = live ? p * (dp[i][j] - dlt) * dcap * a.scale : 0.f;
+      if (sP != nullptr) sP[row * LP + col] = p;
+      sdS[row * LP + col] = ds;
+    }
+  }
+}
+
+// (a) delta[b, h, s] = Σ_d dO[b, s, h, d] o[b, s, h, d], one warp a row
+template <int D, typename T>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_delta_kernel(const BwdArgs a) {
+  const long long row =
+      ((long long)blockIdx.x * BWD_THREADS + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= (long long)a.B * a.S * a.Hq) return;
+  const T* o = static_cast<const T*>(a.o) + row * D;
+  const T* dO = static_cast<const T*>(a.dO) + row * D;
+  float acc = 0.f;
+  for (int d = lane; d < D; d += 32) acc = fmaf(to_f32(dO[d]), to_f32(o[d]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const int h = (int)(row % a.Hq);
+    const long long bs = row / a.Hq;            // b * S + s
+    const int s = (int)(bs % a.S);
+    const int b = (int)(bs / a.S);
+    a.delta[((size_t)b * a.Hq + h) * a.S + s] = acc;
+  }
+}
+
+// (b) dK and dV of one kv block of one kv head of one sequence
+template <int D, typename T>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_dkdv_kernel(const BwdArgs a) {
+  constexpr int BQ = BwdCfg<D>::BQ, BKV = BwdCfg<D>::BKV;
+  constexpr int LD = D + 1, LP = BKV + 1, NA = BKV / 16, NC = D / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sK = reinterpret_cast<float*>(smem_raw);
+  float* sV = sK + BKV * LD;
+  float* sQ = sV + BKV * LD;
+  float* sdO = sQ + BQ * LD;
+  float* sP = sdO + BQ * LD;
+  float* sdS = sP + BQ * LP;
+  float* sL = sdS + BQ * LP;
+  float* sDl = sL + BQ;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int k0 = blockIdx.x * BKV;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = a.Hq / a.Hkv;
+  const T* q = static_cast<const T*>(a.q);
+  const T* dO = static_cast<const T*>(a.dO);
+  load_tile<D, BKV>(sK, static_cast<const T*>(a.k), b, k0, a.Skv, a.Hkv, hk);
+  load_tile<D, BKV>(sV, static_cast<const T*>(a.v), b, k0, a.Skv, a.Hkv, hk);
+  float dk[NA][NC], dv[NA][NC];
+#pragma unroll
+  for (int x = 0; x < NA; ++x)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) dk[x][c] = dv[x][c] = 0.f;
+
+  // the query rows whose band reaches keys [k0, k0 + BKV): [q_begin, q_end)
+  const int q_begin = a.causal ? k0 : 0;
+  int q_end = a.S;
+  if (a.window > 0) q_end = min(q_end, k0 + BKV - 1 + a.window);
+  if (k0 >= a.kv_len) q_end = q_begin;       // every key here is masked
+  for (int g = 0; g < G; ++g) {
+    const int h = hk * G + g;
+    for (int q0 = (q_begin / BQ) * BQ; q0 < q_end; q0 += BQ) {
+      __syncthreads();                       // the last block is consumed
+      load_tile<D, BQ>(sQ, q, b, q0, a.S, a.Hq, h);
+      load_tile<D, BQ>(sdO, dO, b, q0, a.S, a.Hq, h);
+      for (int r = threadIdx.x; r < BQ; r += BWD_THREADS) {
+        const bool in = q0 + r < a.S;
+        const size_t at = ((size_t)b * a.Hq + h) * a.S + q0 + r;
+        sL[r] = in ? a.lse[at] : 0.f;
+        sDl[r] = in ? a.delta[at] : 0.f;
+      }
+      __syncthreads();
+      bwd_scores<D, BQ, BKV>(a, sQ, sdO, sK, sV, sL, sDl, sP, sdS, q0, k0);
+      __syncthreads();
+      // dV += Pᵀ dO, dK += dSᵀ Q over the block's rows
+#pragma unroll 4
+      for (int i = 0; i < BQ; ++i) {
+        float pj[NA], sj[NA], od[NC], qd[NC];
+#pragma unroll
+        for (int x = 0; x < NA; ++x) {
+          pj[x] = sP[i * LP + ty + 16 * x];
+          sj[x] = sdS[i * LP + ty + 16 * x];
+        }
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          od[c] = sdO[i * LD + tx + 16 * c];
+          qd[c] = sQ[i * LD + tx + 16 * c];
+        }
+#pragma unroll
+        for (int x = 0; x < NA; ++x)
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            dv[x][c] = fmaf(pj[x], od[c], dv[x][c]);
+            dk[x][c] = fmaf(sj[x], qd[c], dk[x][c]);
+          }
+      }
+    }
+  }
+  T* dkp = static_cast<T*>(a.dk);
+  T* dvp = static_cast<T*>(a.dv);
+#pragma unroll
+  for (int x = 0; x < NA; ++x) {
+    const int kp = k0 + ty + 16 * x;
+    if (kp >= a.Skv) continue;
+    const size_t base = ((size_t)(b * a.Skv + kp) * a.Hkv + hk) * D + tx;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      dkp[base + 16 * c] = from_f32<T>(dk[x][c]);
+      dvp[base + 16 * c] = from_f32<T>(dv[x][c]);
+    }
+  }
+}
+
+// (c) dQ of one query block of one head of one sequence
+template <int D, typename T>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_dq_kernel(const BwdArgs a) {
+  constexpr int BQ = BwdCfg<D>::BQ, BKV = BwdCfg<D>::BKV;
+  constexpr int LD = D + 1, LP = BKV + 1, MI = BQ / 16, NC = D / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);
+  float* sdO = sQ + BQ * LD;
+  float* sK = sdO + BQ * LD;
+  float* sV = sK + BKV * LD;
+  float* sdS = sV + BKV * LD;
+  float* sL = sdS + BQ * LP;
+  float* sDl = sL + BQ;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (a.Hq / a.Hkv);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  load_tile<D, BQ>(sQ, static_cast<const T*>(a.q), b, q0, a.S, a.Hq, h);
+  load_tile<D, BQ>(sdO, static_cast<const T*>(a.dO), b, q0, a.S, a.Hq, h);
+  for (int r = threadIdx.x; r < BQ; r += BWD_THREADS) {
+    const bool in = q0 + r < a.S;
+    const size_t at = ((size_t)b * a.Hq + h) * a.S + q0 + r;
+    sL[r] = in ? a.lse[at] : 0.f;
+    sDl[r] = in ? a.delta[at] : 0.f;
+  }
+  float dq[MI][NC];
+#pragma unroll
+  for (int x = 0; x < MI; ++x)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) dq[x][c] = 0.f;
+
+  // the live key range of this query block: [k_begin, k_end)
+  const int k_begin = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  int k_end = a.kv_len;
+  if (a.causal) k_end = min(k_end, min(q0 + BQ, a.S));
+  for (int k0 = (k_begin / BKV) * BKV; k0 < k_end; k0 += BKV) {
+    __syncthreads();                         // the last tile is consumed
+    load_tile<D, BKV>(sK, k, b, k0, a.Skv, a.Hkv, hk);
+    load_tile<D, BKV>(sV, v, b, k0, a.Skv, a.Hkv, hk);
+    __syncthreads();
+    bwd_scores<D, BQ, BKV>(a, sQ, sdO, sK, sV, sL, sDl, nullptr, sdS, q0, k0);
+    __syncthreads();
+    // dQ += dS K over the tile's keys
+#pragma unroll 4
+    for (int j = 0; j < BKV; ++j) {
+      float si[MI], kd[NC];
+#pragma unroll
+      for (int x = 0; x < MI; ++x) si[x] = sdS[(ty + 16 * x) * LP + j];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) kd[c] = sK[j * LD + tx + 16 * c];
+#pragma unroll
+      for (int x = 0; x < MI; ++x)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) dq[x][c] = fmaf(si[x], kd[c], dq[x][c]);
+    }
+  }
+  T* dqp = static_cast<T*>(a.dq);
+#pragma unroll
+  for (int x = 0; x < MI; ++x) {
+    const int qp = q0 + ty + 16 * x;
+    if (qp >= a.S) continue;
+    const size_t base = ((size_t)(b * a.S + qp) * a.Hq + h) * D + tx;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) dqp[base + 16 * c] = from_f32<T>(dq[x][c]);
+  }
+}
+
+template <int D, typename T>
+int bwd_launch(const BwdArgs& a, cudaStream_t stream) {
+  constexpr int BQ = BwdCfg<D>::BQ, BKV = BwdCfg<D>::BKV;
+  constexpr int LD = D + 1, LP = BKV + 1;
+  constexpr int SMEM_KV = (2 * BKV * LD + 2 * BQ * LD + 2 * BQ * LP + 2 * BQ) * 4;
+  constexpr int SMEM_Q = (2 * BQ * LD + 2 * BKV * LD + BQ * LP + 2 * BQ) * 4;
+  const long long rows = (long long)a.B * a.S * a.Hq;
+  const int warps = BWD_THREADS / 32;
+  flash_bwd_delta_kernel<D, T>
+      <<<(unsigned)((rows + warps - 1) / warps), BWD_THREADS, 0, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  auto kkv = flash_bwd_dkdv_kernel<D, T>;
+  err = cudaFuncSetAttribute(kkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_KV);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  kkv<<<dim3((a.Skv + BKV - 1) / BKV, a.Hkv, a.B), BWD_THREADS, SMEM_KV,
+        stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  auto kq = flash_bwd_dq_kernel<D, T>;
+  err = cudaFuncSetAttribute(kq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_Q);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  kq<<<dim3((a.S + BQ - 1) / BQ, a.Hq, a.B), BWD_THREADS, SMEM_Q, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int bwd_d(int D, const BwdArgs& a, cudaStream_t stream) {
+  switch (D) {
+    case 32: return bwd_launch<32, T>(a, stream);
+    case 64: return bwd_launch<64, T>(a, stream);
+    case 112: return bwd_launch<112, T>(a, stream);
+    case 128: return bwd_launch<128, T>(a, stream);
+    case 256: return bwd_launch<256, T>(a, stream);
     default: return ERR_HEAD_DIM;
   }
 }
 
 }  // namespace
 
-// q (B,S,Hq,D), k/v (B,Skv,Hkv,D) -> o (B,S,Hq,D); Skv != S only without
-// a causal mask or a window (the wrapper checks). Returns 0, a cudaError_t
-// code, or a negative code of this file (an unsupported head dim, no
-// tensor-map encoder, a refused tensor map).
+// q (B,S,Hq,D), k/v (B,Skv,Hkv,D) -> o (B,S,Hq,D) and, where `lse` is
+// not null, each row's log-sum-exp into lse (B,Hq,S) f32 (the training
+// forward; serving passes null); Skv != S only without a causal mask or a
+// window (the wrapper checks). Returns 0, a cudaError_t code, or a negative
+// code of this file (an unsupported head dim, no tensor-map encoder, a
+// refused tensor map).
 extern "C" int k5_flash_attention_fwd(const void* q, const void* k,
-                                      const void* v, void* o, int B, int S,
-                                      int Skv, int Hq, int Hkv, int D,
-                                      int is_bf16, int causal, int window,
-                                      float softcap, int kv_len, float scale,
-                                      void* stream) {
+                                      const void* v, void* o, void* lse,
+                                      int B, int S, int Skv, int Hq, int Hkv,
+                                      int D, int is_bf16, int causal,
+                                      int window, float softcap, int kv_len,
+                                      float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (is_bf16)
-    return launch_bf16(D, q, k, v, o, B, S, Skv, Hq, Hkv, causal, window,
+    return launch_bf16(D, q, k, v, o, l, B, S, Skv, Hq, Hkv, causal, window,
                        softcap, kv_len, scale, st);
-  return launch_d<float>(D, q, k, v, o, B, S, Skv, Hq, Hkv, causal, window,
+  return launch_d<float>(D, q, k, v, o, l, B, S, Skv, Hq, Hkv, causal, window,
                          softcap, kv_len, scale, st);
+}
+
+// K5-bwd: the gradients of k5_flash_attention_fwd's output, from q, k, v,
+// o, the forward's lse and dO (all contiguous, o and dO (B,S,Hq,D) in q's
+// dtype) into dq (B,S,Hq,D) and dk, dv (B,Skv,Hkv,D) in that dtype, with
+// `delta` (B,Hq,S) f32 as scratch. Three launches on `stream`: delta =
+// rowsum(dO o), then dk/dv, then dq. Returns 0, a cudaError_t code or
+// ERR_HEAD_DIM.
+extern "C" int k5_flash_attention_bwd(const void* q, const void* k,
+                                      const void* v, const void* o,
+                                      const void* lse, const void* dO,
+                                      void* delta, void* dq, void* dk,
+                                      void* dv, int B, int S, int Skv, int Hq,
+                                      int Hkv, int D, int is_bf16, int causal,
+                                      int window, float softcap, int kv_len,
+                                      float scale, void* stream) {
+  BwdArgs a;
+  a.q = q; a.k = k; a.v = v; a.o = o; a.dO = dO;
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<float*>(delta);
+  a.dq = dq; a.dk = dk; a.dv = dv;
+  a.B = B; a.S = S; a.Skv = Skv; a.Hq = Hq; a.Hkv = Hkv;
+  a.causal = causal; a.window = window; a.kv_len = kv_len;
+  a.softcap = softcap; a.scale = scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? bwd_d<__nv_bfloat16>(D, a, st) : bwd_d<float>(D, a, st);
 }
 
 // Fault injection for the tests: the bf16 launches that follow ask for

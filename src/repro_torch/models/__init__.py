@@ -1,3 +1,4 @@
-from repro_torch.models.model import Model, build, params_from_jax
+from repro_torch.models.model import (Model, attention_layers, build,
+                                      params_from_jax)
 
-__all__ = ["Model", "build", "params_from_jax"]
+__all__ = ["Model", "attention_layers", "build", "params_from_jax"]

@@ -10,6 +10,14 @@ PyTorch versions. ``plain=True`` asks for the plain versions on any device
 — the reference path that ``chip_smoke.py`` holds the kernel path against;
 nothing falls back to it on its own.
 
+Train mode (``train=True``) differentiates attention as the reference
+does through ``flash_xla``'s custom VJP: ``flash_attention_grad`` runs K5
+with its log-sum-exp forward and K5-bwd backward on CUDA tensors (their
+plain, query-blockwise versions on the CPU or with ``plain``), saving only
+q, k, v, out and lse. ``cfg.attn_backend == "masked"`` keeps train mode on
+the full-score ``flash_attention_plain`` through autograd, as the
+reference's ``masked_full_xla`` control arm.
+
 On a mesh (``ShardCtx.for_mesh``, DTensor activations) the kernels run on
 each rank's local blocks inside ``local_map``, the counterpart of the
 reference's ``shard_map``:
@@ -25,6 +33,8 @@ reference's ``shard_map``:
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.distributed.sharding import (_is_dtensor, as_replicated,
@@ -35,6 +45,7 @@ from repro_torch.kernels.decode_attention import (
     decode_attention_partial_plain, decode_attention_plain,
     merge_decode_partials)
 from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_grad,
                                                  flash_attention_plain)
 from repro_torch.models.layers import Init
 
@@ -136,12 +147,20 @@ def _local_kv(k, v, h0: int, hq: int, G: int):
 
 
 def attention(q, k, v, cfg, ctx, *, causal: bool, window: int = 0,
-              plain: bool = False):
+              plain: bool = False, train: bool = False):
     """q: (B,S,Hq,D); k,v: (B,Skv,Hkv,D) -> (B,S,Hq,D). Every
     ``cfg.attn_backend`` value ('xla' | 'masked' | 'pallas' | 'auto')
-    computes this function; on CUDA all of them run the flash kernel. On a
-    mesh (DTensors) each rank runs it on its query-head shard."""
-    fn = flash_attention_plain if plain else flash_attention
+    computes this function; on CUDA all of them run the flash kernel, and
+    with ``train`` its differentiable form (K5 with lse, K5-bwd) but for
+    'masked', the full-score plain version through autograd. On a mesh
+    (DTensors) each rank runs it on its query-head shard."""
+    if train and cfg.attn_backend == "masked":
+        fn = flash_attention_plain
+    elif train:
+        fn = functools.partial(flash_attention_grad, block=cfg.attn_chunk,
+                               plain=plain)
+    else:
+        fn = flash_attention_plain if plain else flash_attention
     kw = dict(causal=causal, window=window, attn_softcap=cfg.attn_softcap)
     if ctx.mesh is None or not _is_dtensor(q):
         return fn(q, k, v, **kw)

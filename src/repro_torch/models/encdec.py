@@ -16,8 +16,10 @@ frames) goes through K4 with ``valid_len = F`` and no window: the same
 function as K5 at Sq = 1, and K4 splits the 1500 frames over a cluster
 of CTAs where K5 would give each (slot, head) one CTA. The reference's
 ``lax.scan`` over layers becomes a Python loop; decode writes the self
-K/V caches IN PLACE. Train mode takes the plain attention, unbinds the
-stacks once and checkpoints each layer's body by ``remat_wrap``.
+K/V caches IN PLACE. Train mode takes the differentiable attention (K5
+with its lse and K5-bwd on CUDA, cross-attention's Sq != F included;
+their plain versions on the CPU), unbinds the stacks once and
+checkpoints each layer's body by ``remat_wrap``.
 """
 from __future__ import annotations
 
@@ -79,8 +81,8 @@ def encode(params, frames, cfg, ctx, *, plain: bool = False,
             lp = ctx.gather_fsdp(lp)      # a layer's fsdp gather at use
         h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
         q, k, v = attn.qkv_project(lp["attn"], h, ctx)
-        o = attn.attention(q, k, v, cfg, ctx, causal=False,
-                           plain=plain or train)
+        o = attn.attention(q, k, v, cfg, ctx, causal=False, plain=plain,
+                           train=train)
         x = x + attn.out_project(lp["attn"], o, ctx)
         h = rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
         return x + mlp_apply(lp["mlp"], h, cfg.mlp_act, cfg.gated_mlp, ctx)
@@ -108,7 +110,7 @@ def decoder_forward(params, x, enc_out, cfg, ctx, *, mode: str, pos,
     the self caches in place and returns ``caches``; train mode returns
     (x, None)."""
     if mode == "train":
-        return _train_decoder(params, x, enc_out, cfg, ctx), None
+        return _train_decoder(params, x, enc_out, cfg, ctx, plain), None
     decode = mode == "decode"
     selfs, crosses = [], []
     frames_len = None
@@ -153,17 +155,19 @@ def decoder_forward(params, x, enc_out, cfg, ctx, *, mode: str, pos,
     return x, {"self": stack_layers(selfs), "cross": stack_layers(crosses)}
 
 
-def _train_decoder(params, x, enc_out, cfg, ctx):
+def _train_decoder(params, x, enc_out, cfg, ctx, plain):
     def body(x, lp):
         lp = ctx.gather_fsdp(lp)          # a layer's fsdp gather at use
         h = rms_norm(x, lp["ln_self"], cfg.norm_eps)
         q, k, v = attn.qkv_project(lp["self_attn"], h, ctx)
-        o = attn.attention(q, k, v, cfg, ctx, causal=True, plain=True)
+        o = attn.attention(q, k, v, cfg, ctx, causal=True, plain=plain,
+                           train=True)
         x = x + attn.out_project(lp["self_attn"], o, ctx)
         h = ctx.gather_seq(rms_norm(x, lp["ln_cross"], cfg.norm_eps))
         qc = attn._proj(h, lp["cross_attn"]["wq"])
         kx, vx = _cross_kv(lp, enc_out, ctx)
-        oc = attn.attention(qc, kx, vx, cfg, ctx, causal=False, plain=True)
+        oc = attn.attention(qc, kx, vx, cfg, ctx, causal=False, plain=plain,
+                            train=True)
         x = x + attn.out_project(lp["cross_attn"], oc, ctx)
         h = rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
         return x + mlp_apply(lp["mlp"], h, cfg.mlp_act, cfg.gated_mlp, ctx)

@@ -72,7 +72,7 @@ def hybrid_forward(params, x, cfg, ctx, *, mode: str, pos,
     decode updates ``caches`` in place and returns it. Train mode returns
     (x, aux)."""
     if mode == "train":
-        return _train_forward(params, x, cfg, ctx, pos)
+        return _train_forward(params, x, cfg, ctx, pos, plain)
     decode = mode == "decode"
     groups, every, tail = _counts(cfg)
     x0 = x
@@ -103,7 +103,7 @@ def hybrid_forward(params, x, cfg, ctx, *, mode: str, pos,
     return x, {}, new_caches
 
 
-def _train_forward(params, x, cfg, ctx, pos):
+def _train_forward(params, x, cfg, ctx, pos, plain):
     groups, every, tail = _counts(cfg)
     x0 = x
     stacks = [unstack_layers(g, groups) for g in params["groups"]]
@@ -112,7 +112,7 @@ def _train_forward(params, x, cfg, ctx, pos):
         # each use's fsdp gather (the shared block's too), inside remat
         x, _, _ = _shared_apply(ctx.gather_fsdp(params["shared"]), x, x0,
                                 cfg, ctx, mode="train", pos=pos, cache=None,
-                                valid_len=None, plain=True)
+                                valid_len=None, plain=plain)
         for lp in lps:
             x, _, _ = layer_apply(ctx.gather_fsdp(lp), x, cfg, ctx, "ssm",
                                   {}, mode="train", pos=pos)

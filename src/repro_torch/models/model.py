@@ -6,7 +6,8 @@ functions on tensors:
 
 * ``init(seed) -> params`` (drawn on ``device`` from a ``torch.Generator``)
 * ``loss(params, batch) -> (scalar, metrics)`` (the train step's body;
-  differentiable, through the plain attention and SSD)
+  differentiable: attention through K5 with its lse and K5-bwd on CUDA,
+  their plain versions on the CPU, the SSD through its plain version)
 * ``prefill(params, batch, max_seq) -> (logits, caches)``
 * ``decode_step(params, caches, tokens, positions) -> (logits, caches)``
   — the caches are updated IN PLACE and returned
@@ -156,6 +157,21 @@ class Model:
     input_specs: Callable
 
 
+def attention_layers(cfg: ModelConfig) -> int:
+    """Attention calls in one forward of the model: one a layer (a dense,
+    moe or vlm stack), one a shared-block invocation (hybrid), the
+    encoder's self-attention and the decoder's self- and cross-attention
+    (encdec), none (ssm). A train step launches K5 this many times a
+    microbatch, twice under remat (the recompute), and K5-bwd once."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.shared_attn_every
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.num_layers
+    return cfg.num_layers
+
+
 def params_from_jax(np_tree, cfg: ModelConfig, device) -> dict:
     """The reference's parameter tree (numpy leaves; dicts and lists) as
     the port's tensors on ``device``, in ``cfg.param_dtype`` — the layouts
@@ -169,9 +185,9 @@ def params_from_jax(np_tree, cfg: ModelConfig, device) -> dict:
 def build(cfg: ModelConfig, ctx: ShardCtx | None = None, *,
           device="cuda", plain_kernels: bool = False) -> Model:
     """``device`` defaults to CUDA and raises when CUDA is absent.
-    ``plain_kernels=True`` runs attention (K4/K5) and the SSD chunk (K6)
-    through the kernels' plain PyTorch versions on any device (the
-    reference path for checks)."""
+    ``plain_kernels=True`` runs attention (K4/K5, and K5/K5-bwd in
+    ``loss``) and the SSD chunk (K6) through the kernels' plain PyTorch
+    versions on any device (the reference path for checks)."""
     cfg.validate()
     tfm.period_spec(cfg)          # raises for a family not ported yet
     device = check_device(device)

@@ -12,13 +12,15 @@ threads updated copies through the scan carry. A MoE layer's aux scalars
 as the reference's scan sums them.
 
 Train mode (``mode="train"``, ``Model.loss``) differentiates through
-autograd. It runs attention and the SSD chunk through their plain PyTorch
-versions on every device, as the reference trains through XLA
-(``flash_xla``, ``ssd_chunked``) and never through a Pallas kernel: no
-kernel has a backward, and their wrappers refuse a tensor that requires
-grad. Each stacked leaf is ``torch.unbind``-ed once a step
-(``unstack_layers``), and each period's body goes through ``remat_wrap``,
-the reference's activation-checkpoint policy.
+autograd. Attention goes through ``flash_attention_grad``, the port of
+``flash_xla``'s custom VJP: K5 with its log-sum-exp and the K5-bwd kernel
+on CUDA tensors, their plain blockwise versions on the CPU (or with
+``plain``); the SSD chunk through its plain PyTorch version on every
+device, as the reference differentiates ``ssd_chunked`` by autodiff (K6
+has no backward; its wrapper, like the forward-only K4/K5 ones, refuses a
+tensor that requires grad). Each stacked leaf is ``torch.unbind``-ed once
+a step (``unstack_layers``), and each period's body goes through
+``remat_wrap``, the reference's activation-checkpoint policy.
 """
 from __future__ import annotations
 
@@ -113,7 +115,7 @@ def _attn_sub(p, x, cfg, ctx, *, local: bool, mode: str, pos,
         new_cache = {"k": kc, "v": vc}
     else:
         o = attn.attention(q, k, v, cfg, ctx, causal=True, window=window,
-                           plain=plain)
+                           plain=plain, train=mode == "train")
         if mode == "prefill":
             new_cache = {"k": k, "v": v}
     o = attn.out_project(p["attn"], o, ctx)
@@ -136,10 +138,9 @@ def _ffn_sub(p, x, cfg, ctx, kind: str, group_mode: str):
 
 def layer_apply(p, x, cfg, ctx, kind: str, opts: dict, *, mode: str, pos,
                 cache=None, valid_len=None, plain: bool = False):
-    """Returns (x, aux, new_cache); train mode returns no cache and takes
-    the plain attention and SSD on every device."""
-    if mode == "train":
-        plain = True
+    """Returns (x, aux, new_cache); train mode returns no cache, takes the
+    differentiable attention (``flash_attention_grad``; its plain versions
+    with ``plain``) and the plain SSD on every device."""
     if kind == "ssm":
         h = rms_norm(x, p["ln"], cfg.norm_eps)
         if mode == "train":
@@ -246,7 +247,7 @@ def forward_stack(params, x, cfg, ctx, *, mode: str, pos,
     """
     spec = period_spec(cfg)
     if mode == "train":
-        return _train_stack(params, x, cfg, ctx, spec, pos)
+        return _train_stack(params, x, cfg, ctx, spec, pos, plain)
     per_layer: dict[str, list] = {f"blk{i}": [] for i in range(len(spec))}
     aux_acc: dict = {}
     for li in range(num_periods(cfg)):
@@ -269,7 +270,7 @@ def _merge_aux(acc: dict, aux: dict) -> None:
         acc[k] = acc.get(k, 0.0) + v
 
 
-def _train_stack(params, x, cfg, ctx, spec, pos):
+def _train_stack(params, x, cfg, ctx, spec, pos, plain):
     n = num_periods(cfg)
     stacks = [unstack_layers(params[f"blk{i}"], n) for i in range(len(spec))]
 
@@ -278,7 +279,7 @@ def _train_stack(params, x, cfg, ctx, spec, pos):
         for (kind, opts), lp in zip(spec, lps):
             lp = ctx.gather_fsdp(lp)      # a layer's fsdp gather at use
             x, a, _ = layer_apply(lp, x, cfg, ctx, kind, opts, mode="train",
-                                  pos=pos)
+                                  pos=pos, plain=plain)
             _merge_aux(aux, a)
         return x, aux
 

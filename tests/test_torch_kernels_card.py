@@ -1,6 +1,7 @@
-"""Prefill (K5) and decode (K4) attention kernels, the SSD chunk kernel
-(K6), and the persistent tile-op kernels (K1 drain, K2 drain + flight
-recorder, K3 executor), against their plain PyTorch versions, on the card. Every test carries the ``gpu`` marker and
+"""Prefill (K5, with its lse for training) and decode (K4) attention
+kernels, attention's backward (K5-bwd), the SSD chunk kernel (K6), and the
+persistent tile-op kernels (K1 drain, K2 drain + flight recorder, K3
+executor), against their plain PyTorch versions, on the card. Every test carries the ``gpu`` marker and
 skips where CUDA is absent. The module imports neither JAX nor the
 reference package, so it also runs on a GPU host without JAX:
 
@@ -8,8 +9,10 @@ reference package, so it also runs on a GPU host without JAX:
         tests/test_torch_kernels_card.py
 
 Tolerances: bf16 2e-2, f32 1e-4 (the kernels and the plain versions sum
-in different orders; K6 rtol and atol 1e-4); acks, control words, profile
-rows and ticks exact."""
+in different orders; K6 rtol and atol 1e-4; the training pair's outputs
+and gradients 2e-2 / 1e-4 x each tensor's largest |want|, its lse 1e-4 x
+its largest |want| in both dtypes: f32 on both sides); acks, control
+words, profile rows and ticks exact."""
 import numpy as np
 import pytest
 import torch
@@ -22,8 +25,10 @@ from repro_torch.kernels.decode_attention import (
     decode_attention_partial_plain, decode_attention_plain,
     merge_decode_partials)
 from repro_torch.kernels.decode_attention import kernel as DK
-from repro_torch.kernels.flash_attention import (flash_attention,
-                                                 flash_attention_plain)
+from repro_torch.kernels.flash_attention import (
+    flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+    flash_attention_fwd, flash_attention_grad, flash_attention_lse_plain,
+    flash_attention_plain)
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.ssd_scan import (ssd, ssd_chunk, ssd_chunk_plain,
                                           ssd_ref)
@@ -406,11 +411,200 @@ def test_decode_launcher_raises_when_the_cluster_is_refused(cuda,
                                atol=BF16_ATOL, rtol=0)
 
 
+# the training pair (K5 with lse, K5-bwd) at every train-capable family's
+# attention shapes: (name, B, Sq, Skv, Hq, Hkv, D, dtype, kwargs)
+GPU_FLASH_TRAIN = [
+    ("llama3_8b", 1, 2048, 2048, 32, 8, 128, torch.bfloat16,
+     dict(causal=True)),
+    ("zamba2_7b_D112", 1, 1024, 1024, 32, 32, 112, torch.bfloat16,
+     dict(causal=True)),
+    ("gemma2_2b_D256_window_softcap", 1, 4608, 4608, 8, 4, 256,
+     torch.bfloat16, dict(causal=True, window=4096, attn_softcap=50.0)),
+    ("whisper_encoder", 1, 1500, 1500, 6, 6, 64, torch.bfloat16,
+     dict(causal=False)),
+    ("whisper_cross_17x1500", 1, 17, 1500, 6, 6, 64, torch.bfloat16,
+     dict(causal=False)),
+    ("grok1_G6_softcap30", 1, 1024, 1024, 48, 8, 128, torch.bfloat16,
+     dict(causal=True, attn_softcap=30.0)),
+    ("reduced_f32", 4, 64, 64, 4, 2, 32, torch.float32, dict(causal=True)),
+    ("reduced_bf16", 4, 64, 64, 4, 2, 32, torch.bfloat16,
+     dict(causal=True)),
+    ("reduced_cross_f32", 2, 17, 16, 4, 2, 32, torch.float32,
+     dict(causal=False)),
+    ("seq_len_D128_bf16", 2, 300, 300, 8, 2, 128, torch.bfloat16,
+     dict(causal=True, seq_len=250)),
+    ("seq_len_D128_f32", 2, 200, 200, 8, 2, 128, torch.float32,
+     dict(causal=True, seq_len=150)),
+    ("window_softcap_D256_f32", 1, 130, 130, 4, 4, 256, torch.float32,
+     dict(causal=True, window=64, attn_softcap=30.0)),
+    ("D112_f32", 1, 150, 150, 4, 4, 112, torch.float32, dict(causal=True)),
+    ("cross_D64_f32", 2, 17, 300, 6, 6, 64, torch.float32,
+     dict(causal=False)),
+    ("internvl2_G8_bf16", 1, 273, 273, 64, 8, 128, torch.bfloat16,
+     dict(causal=True)),
+]
+
+
+def _rel_err(got, want):
+    return float((got.float() - want.float()).abs().max()), \
+        float(want.float().abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B,Sq,Skv,Hq,Hkv,D,dtype,kw", GPU_FLASH_TRAIN,
+                         ids=[c[0] for c in GPU_FLASH_TRAIN])
+def test_flash_train_pair_matches_plain_on_card(cuda, name, B, Sq, Skv, Hq,
+                                                Hkv, D, dtype, kw):
+    """K5 with its lse against ``flash_attention_lse_plain``, then K5-bwd
+    against ``flash_attention_bwd_plain`` on the same (out, lse, dout):
+    each launches once; out and the gradients within 2e-2 (bf16) / 1e-4
+    (f32) x their largest |want|, lse within 1e-4 x its largest |want|."""
+    q, k, v = _qkv(0, B, Skv, Hq, Hkv, D, Sq=Sq)
+    do = np.random.default_rng(1).normal(size=q.shape).astype(np.float32)
+    q = _capped(q, kw)
+    q, k, v, do = (torch.from_numpy(a).to(cuda, dtype) for a in (q, k, v, do))
+    tol = BF16_ATOL if dtype == torch.bfloat16 else 1e-4
+    fwd0, bwd0 = flash_attention.launches, flash_attention_bwd.launches
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    want_out, want_lse = flash_attention_lse_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == fwd0 + 1
+    assert out.dtype == dtype and lse.shape == (B, Hq, Sq)
+    err, scale = _rel_err(out, want_out)
+    assert err <= tol * scale, ("out", err, scale)
+    err, scale = _rel_err(lse, want_lse)
+    assert err <= LSE_ATOL * scale, ("lse", err, scale)
+    _assert_softcap_matters(flash_attention_plain, (q, k, v), kw,
+                            tol * float(want_out.float().abs().max()))
+    got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == bwd0 + 1
+    for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        err, scale = _rel_err(g, w)
+        assert err <= tol * scale, (gname, err, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_lse_of_rows_without_a_live_key_on_card(cuda, dtype):
+    """Rows 115.. see keys q-15..q only, all past seq_len 100: K5 writes
+    the reference's lse there, -1e30 exactly (m = -1e30, l clamped at
+    1e-30), in both instances (wgmma bf16, FFMA f32). The live rows' lse
+    and out agree with the plain versions, and so do the gradients, which
+    the dead rows' dout reaches in neither (p = 0 on every masked key)."""
+    kw = dict(causal=True, window=16, seq_len=100)
+    q, k, v = _qkv(5, 1, 200, 8, 2, 128)
+    do = np.random.default_rng(6).normal(size=q.shape).astype(np.float32)
+    q, k, v, do = (torch.from_numpy(a).to(cuda, dtype) for a in (q, k, v, do))
+    tol = BF16_ATOL if dtype == torch.bfloat16 else 1e-4
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    want_out, want_lse = flash_attention_lse_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert bool((lse[:, :, 115:] == -1e30).all())
+    assert bool((want_lse[:, :, 115:] == -1e30).all())
+    assert bool((lse[:, :, :115] > -1e29).all())
+    err, scale = _rel_err(lse[:, :, :115], want_lse[:, :, :115])
+    assert err <= LSE_ATOL * scale
+    err, scale = _rel_err(out[:, :115], want_out[:, :115])
+    assert err <= tol * scale
+    got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    for g, w in zip(got, want):
+        err, scale = _rel_err(g, w)
+        assert err <= tol * scale
+    live = do.clone()
+    live[:, 115:] = 0
+    for g, w in zip(got, flash_attention_bwd(q, k, v, out, lse, live, **kw)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_flash_grad_trains_through_the_kernels_on_card(cuda):
+    """``flash_attention_grad`` on CUDA tensors launches K5 once forward
+    and K5-bwd once backward; its gradients equal the wrappers' own, and
+    a second call repeats them bit for bit (no atomics)."""
+    q, k, v = _qkv(3, 2, 256, 8, 2, 64)
+    do = torch.from_numpy(np.random.default_rng(4).normal(
+        size=q.shape).astype(np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in (q, k, v))
+    grads = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        fwd0, bwd0 = flash_attention.launches, flash_attention_bwd.launches
+        out = flash_attention_grad(*leaves, causal=True, window=100)
+        out.backward(do)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == fwd0 + 1
+        assert flash_attention_bwd.launches == bwd0 + 1
+        grads.append([t.grad for t in leaves])
+    o, lse = flash_attention_fwd(q, k, v, causal=True, window=100)
+    want = flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=100)
+    for a, b, w in zip(*grads, want):
+        assert torch.equal(a, b) and torch.equal(a, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_remat_policies_recompute_the_kernels_on_card(cuda, policy):
+    """Reduced llama3-8b (f32) with activation checkpointing: the
+    recompute runs K5 (with lse) again into fresh memory under both
+    policies ("dots" recomputes every op but the projections' matmuls, so
+    no cached output of the kernel's allocation is reused), and the loss
+    and gradients equal the run without remat (1e-6 of each leaf's
+    largest |grad|)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.persistent import tree_leaves
+    from repro_torch.models import attention_layers, build
+    from repro_torch.training.train_loop import _value_and_grad
+    cfg = get_config("llama3-8b").reduced()
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32)).to(cuda)
+    params = build(cfg, device=cuda).init(0)
+    runs = []
+    for remat in (False, True):
+        model = build(dataclasses.replace(cfg, remat=remat,
+                                          remat_policy=policy), device=cuda)
+        fwd0, bwd0 = flash_attention.launches, flash_attention_bwd.launches
+        grads, m = _value_and_grad(model.loss, params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        n = attention_layers(cfg)
+        assert flash_attention.launches - fwd0 == n * (2 if remat else 1)
+        assert flash_attention_bwd.launches - bwd0 == n
+        runs.append((float(m["loss"]), tree_leaves(grads)))
+    assert runs[0][0] == runs[1][0]
+    for a, b in zip(runs[0][1], runs[1][1]):
+        scale = max(float(a.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.gpu
+def test_flash_bwd_rejects_what_it_cannot_take(cuda):
+    q = torch.zeros((1, 64, 4, 64), device=cuda)
+    kv = torch.zeros((1, 64, 2, 64), device=cuda)
+    lse = torch.zeros((1, 4, 64), device=cuda)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, kv, kv, q, lse[:, :, :32].contiguous(), q)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, kv, kv, q, lse.double(), q)
+    with pytest.raises(ValueError, match="dout"):
+        flash_attention_bwd(q, kv, kv, q, lse, q.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_bwd(q, kv, kv, q, lse, q.transpose(1, 2).contiguous(
+        ).transpose(1, 2))
+    with pytest.raises(ValueError, match="length"):
+        flash_attention_bwd(q, kv[:, :40].contiguous(), kv[:, :40].contiguous(),
+                            q, lse, q, causal=True)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
                                   "ssd_chunk"])
 def test_kernel_wrappers_refuse_grad_on_card(cuda, name):
-    """No kernel has a backward: on the card each of K4/K5/K6 raises for
+    """The forward-only wrappers (K5's serving ``flash_attention``, K4,
+    K6) have no backward: on the card each raises for
     an input that requires grad with grad mode on (its output would carry
     no gradient), launching nothing; under ``torch.no_grad()`` it launches
     and agrees with its plain version."""

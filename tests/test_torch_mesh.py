@@ -509,12 +509,16 @@ def test_dry_run_refuses_train(fake_world, arch, multi_pod):
     """A train_4k cell (forward, backward and AdamW on fake DTensors) of a
     reduced config is OK: its arguments (parameters, fp32 or 8-bit
     optimizer state, the batch with its frames) are the reference's
-    shards by arithmetic, its peak holds at least them, and its
-    collectives include the fsdp gathers and their reduce-scatters."""
+    shards by arithmetic, its peak holds at least them, its collectives
+    include the fsdp gathers and their reduce-scatters, and its kernel
+    tally holds K5 (with its lse) and K5-bwd once an attention call a
+    microbatch (the reduced configs have no remat), the backward's
+    operations 2.5x the forward's."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.launch import roofline
     from repro_torch.launch.dryrun import run_cell
+    from repro_torch.models import attention_layers
     cfg = get_config(arch).reduced()
     if cfg.train_accum_steps > 1:      # grok-1's 8 microbatches, cut to 2
         cfg = dataclasses.replace(cfg, train_accum_steps=2)
@@ -526,7 +530,12 @@ def test_dry_run_refuses_train(fake_world, arch, multi_pod):
     assert mem["peak_bytes_per_device"] >= mem["argument_bytes"]
     counts = rec["collectives"]["counts"]
     assert counts["all-gather"] > 0 and counts["reduce-scatter"] > 0
-    assert rec["cost"]["kernels"] == {}        # training launches none
+    kern = rec["cost"]["kernels"]
+    calls = attention_layers(cfg) * cfg.train_accum_steps
+    assert not cfg.remat and set(kern) == {"K5", "K5-bwd"}
+    assert kern["K5"]["calls"] == kern["K5-bwd"]["calls"] == calls
+    assert kern["K5-bwd"]["flops"] == pytest.approx(
+        2.5 * kern["K5"]["flops"])
     row = roofline.analyse(rec)
     assert row.model_flops == pytest.approx(
         6 * rec["active_params"] * 4096 * 256 / rec["chips"])

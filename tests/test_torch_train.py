@@ -4,8 +4,10 @@ parameters through ``params_from_jax``; loss and metrics within 1e-5, each
 leaf's gradient within 1e-4 x the leaf's largest |grad|), three train steps
 (lr 1e-3) for dense, moe (8-bit AdamW) and ssm (loss within 1e-5,
 parameters within 1e-4), microbatch accumulation, a bit-exact resume, the
-remat policies, and train mode's plain attention and SSD (the kernel
-wrappers refuse a tensor that requires grad)."""
+remat policies, and train mode's paths on the CPU: attention through
+``flash_attention_grad``'s plain blockwise forward and backward (the
+full-score plain version only for the 'masked' backend), the plain SSD
+(the forward-only kernel wrappers refuse a tensor that requires grad)."""
 import dataclasses
 import os
 import shutil
@@ -29,6 +31,7 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_plain
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import attention as attn_mod
@@ -297,9 +300,12 @@ def test_remat_policies_give_the_same_grads(arch, policy):
 
 @pytest.fixture
 def plain_counts(monkeypatch):
-    """Counts of the plain attention and SSD calls the models make, with
-    the kernel wrappers replaced by functions that fail."""
-    counts = {"flash_attention_plain": 0, "ssd_chunk_plain": 0}
+    """Counts of the plain attention and SSD calls the models make (the
+    full-score attention, the training pair's blockwise forward with lse
+    and backward, the SSD chunk), with the forward-only kernel wrappers
+    replaced by functions that fail."""
+    counts = {"flash_attention_plain": 0, "flash_attention_lse_plain": 0,
+              "flash_attention_bwd_plain": 0, "ssd_chunk_plain": 0}
 
     def counting(name, fn):
         def wrapped(*a, **kw):
@@ -313,6 +319,9 @@ def plain_counts(monkeypatch):
     monkeypatch.setattr(attn_mod, "flash_attention_plain",
                         counting("flash_attention_plain",
                                  flash_attention_plain))
+    for name in ("flash_attention_lse_plain", "flash_attention_bwd_plain"):
+        monkeypatch.setattr(fa_kernel, name,
+                            counting(name, getattr(fa_kernel, name)))
     monkeypatch.setattr(ssd_ops, "ssd_chunk_plain",
                         counting("ssd_chunk_plain", ssd_chunk_plain))
     monkeypatch.setattr(attn_mod, "flash_attention", refuse)
@@ -324,12 +333,17 @@ def plain_counts(monkeypatch):
 @pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-780m", "zamba2-7b",
                                   "whisper-tiny"])
 def test_train_mode_takes_the_plain_paths(arch, plain_counts):
+    """On the CPU train mode's attention is ``flash_attention_grad``'s
+    plain pair (forward with lse, blockwise backward), never the
+    full-score version nor a kernel wrapper; the SSD its plain chunk."""
     cfg = get_config(arch).reduced()
     model = build(cfg, device="cpu")
     _, tb = _batch(cfg)
     _value_and_grad(model.loss, model.init(0), tb)
     if cfg.family != "ssm":
-        assert plain_counts["flash_attention_plain"] > 0
+        assert plain_counts["flash_attention_lse_plain"] > 0
+        assert plain_counts["flash_attention_bwd_plain"] > 0
+    assert plain_counts["flash_attention_plain"] == 0
     if cfg.family in ("ssm", "hybrid"):
         assert plain_counts["ssd_chunk_plain"] > 0
 
@@ -354,8 +368,9 @@ def _wrapper_args(name):
 @pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
                                   "ssd_chunk"])
 def test_kernel_wrapper_refuses_grad(name):
-    """No kernel has a backward: a wrapper raises before anything else
-    (the device check included) when grad mode is on and an input requires
+    """The forward-only wrappers (K5's serving ``flash_attention``, K4,
+    K6) have no backward: a wrapper raises before anything else (the
+    device check included) when grad mode is on and an input requires
     grad; under ``torch.no_grad()`` it runs."""
     fn, plain, args, kw = _wrapper_args(name)
     want = plain(*args, **kw)
