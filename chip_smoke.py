@@ -113,7 +113,9 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    its plain version's, K5-with-lse's and the library backward's times
    (SDPA's, or at a softcap row the compiled ``flex_attention``'s, timed
    after phase 9; each a CUDA-graph replay as the kernels are, its
-   gradients held to the plain backward's) and the bound; then ``repro_torch.launch.train.main`` runs, each launching K5
+   gradients held to the plain backward's) and the bound, with K5-bwd's
+   share of its bound, its ratio to the library backward and the time of
+   the FFMA kernels its bf16 path ran before (``FFMA_BWD_MS``); then ``repro_torch.launch.train.main`` runs, each launching K5
    (once an attention layer a microbatch, twice under remat) and K5-bwd
    (once) as its config implies, K4/K6 and K1-K3 0 times, the plain SSD
    above 0 where the model has one and no plain attention: 8 steps of every
@@ -2057,7 +2059,7 @@ def flex_backward_times(rows) -> None:
         log(f"library flash_attention_bwd {r['case']:50s} flex_attention's "
             f"backward: ms={r['library_ms']:.4f} max_abs_err="
             f"{r['library_err']:.3e} within {r['tol']:.0e} x max|want|: "
-            f"{r['library_ok']} (K5-bwd ms {r['ms']:.4f})")
+            f"{r['library_ok']} (K5-bwd ms {r['ms']:.4f}; {bwd_standing(r)})")
     bad = [r["case"] for r in rows if r["library_ok"] is False]
     if bad:
         raise SystemExit(f"the library backward disagrees with the plain "
@@ -2087,6 +2089,31 @@ TRAIN_ATTN_ROWS = [
 ]
 
 
+# K5-bwd's time at each row when FFMA kernels ran both dtypes, before the
+# bf16 path moved to wgmma (PERF.md section 6, in brackets); each row logs
+# this run's time beside it
+FFMA_BWD_MS = {
+    "llama3_8b_B1_S4096_bf16": 28.254, "llama3_8b_B8_S256_bf16": 1.3528,
+    "llama3_8b_B1_S2048_bf16": 8.786, "zamba2_7b_B1_S2048_D112_bf16": 5.411,
+    "gemma2_2b_B1_S4608_window4096_softcap50_D256_bf16": 22.432,
+    "grok1_B1_S2048_G6_softcap30_bf16": 13.622,
+    "whisper_encoder_S1500_bf16": 0.9100,
+    "whisper_cross_17x1500_bf16": 0.2579, "reduced_B4_S64_f32": 0.0322,
+}
+
+
+def bwd_standing(r) -> str:
+    """K5-bwd's share of its bound, its ratio to the library backward
+    (where timed) and the FFMA kernels' time at the row."""
+    out = f"share of bound {r['bound_ms'] / r['ms']:.4f}"
+    if r.get("library_ms"):
+        out += f", {r['ms'] / r['library_ms']:.2f}x the library's backward"
+    was = FFMA_BWD_MS.get(r["case"])
+    if was is not None:
+        out += f", FFMA {was:.4f} ms ({was / r['ms']:.1f}x this)"
+    return out
+
+
 def train_kernel_checks() -> dict:
     """``flash_bwd_case`` at TRAIN_ATTN_ROWS; fails on any error past its
     tolerance."""
@@ -2105,7 +2132,7 @@ def train_kernel_checks() -> dict:
             f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
             f"library_backward_ms={lib} K5-with-lse ms={r['fwd_lse_ms']:.4f} "
             f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}; bytes "
-            f"{r['bytes_ms']:.5f}, ops {r['ops_ms']:.5f})")
+            f"{r['bytes_ms']:.5f}, ops {r['ops_ms']:.5f}); {bwd_standing(r)}")
         rows[name] = r
         _free()
     bad = [n for n, r in rows.items() if not r["ok"]]

@@ -60,18 +60,14 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int BK = 64;           // keys per shared-memory tile
 constexpr float NEG = -1e30f;    // the reference's NEG_INF
+constexpr float LOG2E = 1.4426950408889634f;
 
 // ---- 16-byte vector loads/stores (the f32 path) ---------------------------
 template <typename T> struct Vec;
 template <> struct Vec<float> { static constexpr int N = 4; };
-template <> struct Vec<__nv_bfloat16> { static constexpr int N = 8; };
 
 __device__ __forceinline__ void unpack(uint32_t w, float* out, float) {
   out[0] = __uint_as_float(w);
-}
-__device__ __forceinline__ void unpack(uint32_t w, float* out, __nv_bfloat16) {
-  out[0] = __uint_as_float(w << 16);
-  out[1] = __uint_as_float(w & 0xffff0000u);
 }
 
 template <typename T>
@@ -86,11 +82,6 @@ __device__ __forceinline__ void load16(const T* p, float* out) {
 
 __device__ __forceinline__ uint32_t pack(const float* in, float) {
   return __float_as_uint(in[0]);
-}
-__device__ __forceinline__ uint32_t pack(const float* in, __nv_bfloat16) {
-  const uint32_t a = __bfloat16_as_ushort(__float2bfloat16_rn(in[0]));
-  const uint32_t b = __bfloat16_as_ushort(__float2bfloat16_rn(in[1]));
-  return a | (b << 16);
 }
 
 template <typename T>
@@ -390,6 +381,16 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   } while (!done);
 }
 
+// `bytes` (a multiple of 16) of 16-byte-aligned global memory into shared
+// memory, completing on `bar` as the tensor copies do
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar) : "memory");
+}
+
 // one box of the 4-D tensor map (D, H, S, B) into shared memory
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int c0, int c1, int c2,
@@ -444,6 +445,18 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 // The products, operand lists written out: m64nNk16, f32 += bf16 x bf16.
 // SS: A and B from shared memory, both K-major. RS: A from registers (the
 // m16n8k16 A-fragment layout per warp), B MN-major (transposed).
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                                 uint64_t db, int scale_d) {
   asm volatile(
@@ -536,6 +549,9 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
 
 
 template <int N> struct Wgmma;
+template <> struct Wgmma<32> {
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int s) { wgmma_ss_n32(d, a, b, s); }
+};
 template <> struct Wgmma<64> {
   static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int s) { wgmma_ss_n64(d, a, b, s); }
   static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int s) { wgmma_rs_n64(d, a, b, s); }
@@ -957,6 +973,16 @@ int encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
 }
 
+// A kernel's opt-in shared memory; an error is reported here and cleared,
+// so the next launch does not see it
+template <typename K>
+cudaError_t set_smem(K kern, int bytes) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
 // The dynamic shared memory a launch asks for: the instance's own size, or
 // what k5_request_smem set (a fault-injection hook: a size above the card's
 // opt-in limit makes the attribute call fail, which the launcher reports).
@@ -969,18 +995,13 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
               cudaStream_t stream) {
   const int smem = g_smem_request > 0 ? g_smem_request : TcCfg<D>::SMEM;
   auto kern = flash_fwd_wgmma_kernel<D, BKT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();    // reported here; the next launch must not see it
-    return (int)err;
-  }
+  cudaError_t err = set_smem(kern, smem);
+  if (err != cudaSuccess) return (int)err;
   CUtensorMap tq, tk, tv;
   int e = encode_bshd(&tq, q, B, S, Hq, D, BQ);
   if (!e) e = encode_bshd(&tk, k, B, Skv, Hkv, D, BKT);
   if (!e) e = encode_bshd(&tv, v, B, Skv, Hkv, D, BKT);
   if (e) return e;
-  constexpr float LOG2E = 1.4426950408889634f;
   TcArgs a;
   a.o = static_cast<__nv_bfloat16*>(o);
   a.lse = lse;
@@ -1023,7 +1044,7 @@ int launch_bf16(int D, const void* q, const void* k, const void* v, void* o,
   }
 }
 
-// ---- K5-bwd: the backward (FFMA, f32 accumulation) -------------------------
+// ---- K5-bwd: the backward ---------------------------------------------------
 //
 // Replaces: src/repro/models/attention.py::_flash_bwd_impl, the backward of
 // flash_xla's custom VJP (XLA in the reference; no Pallas kernel). Same
@@ -1031,29 +1052,90 @@ int launch_bf16(int D, const void* q, const void* k, const void* v, void* o,
 // p = exp(s - lse) from the forward's lse: delta = rowsum(dO∘o),
 // dV = Σ pᵀ dO, dS = p∘(dO Vᵀ - delta) times the softcap's 1 - tanh²(z/cap),
 // 0 where masked, times scale; dQ = dS K, dK = dSᵀ Q, the G query heads of
-// a kv head summed into its dK and dV. Not its block-by-block schedule:
-// three launches, each CTA the only writer of its outputs (no atomics, so
-// a run repeats bit for bit):
-// (a) delta, one warp a row;
-// (b) dK/dV, one CTA a (kv block, kv head, sequence): it keeps its keys' K
-//     and V tiles and its dK/dV accumulators, and walks the G query heads
-//     and, for each, the query blocks whose causal/window band reaches its
-//     keys (the pairs block_pairs gives), recomputing S, P and dS;
-// (c) dQ, one CTA a (query block, head, sequence) over its band's kv blocks.
-// What bounds it on the H100: five products of the forward's shape (2.5x
-// its operations), so operations at training lengths. This first version
-// runs every product in FFMA from f32 tiles in shared memory (bf16 inputs
-// widened on load): exact f32 arithmetic (the f32 instance must meet the
-// CPU's train step at 1e-5), but for bf16 far from the tensor cores' bound
-// (PERF.md; wgmma/TMA as in the forward is later work). Layout: a 16 x 16
-// thread grid; a thread holds a strided micro-tile of S and dP (rows
-// ty + 16a, keys tx + 16b) and strided columns tx + 16c of its accumulator
-// rows; tiles are rows of D + 1 floats (an odd stride: the 16 rows a warp
-// reads lie in 16 banks). D = 256 takes 32-row tiles (shared memory).
-// A row with no live key (only with kv_len) has lse = -1e30 and so p = 1 on
-// the masked keys of the tiles visited, as the reference's p on the keys of
-// its blocks: that row's dV follows each one's visited set (no training
-// path has such a row).
+// a kv head summed into its dK and dV. Not its block-by-block schedule. p
+// is 0 on every masked key: exp(-1e30 - lse) is 0 on a row with a live
+// key, and a row with none (only with kv_len; its lse is -1e30) gives no
+// key a gradient. No atomics: every output element has one writer, or a
+// sum over the G query heads in a fixed order, so a run repeats bit for bit.
+//
+// What bounds it on the H100: the function needs five products of the
+// forward's shape (S and dP recomputed, dV, dK, dQ: 2.5x its operations), so
+// operations at training lengths. Without atomics into dQ this design runs
+// seven: S and dP once beside dK/dV and once beside dQ.
+//
+// bf16 (every training config) is FlashAttention-3's backward, written by
+// hand from the forward's parts: TMA copies into 128-byte-swizzled 64-column
+// slabs, mbarrier rings, one producer warpgroup (one thread issuing, its
+// registers given to the consumers with setmaxnreg), two consumer
+// warpgroups on wgmma. It replaces an FFMA kernel that ran every product
+// from f32 tiles in shared memory (bf16 widened on load, two shared loads
+// an FMA pair), 17x slower at llama3-8b S = 4096. Four launches:
+// (a) prep, one warp a row: delta and lse·log2(e) into scratch rows padded
+//     to 128 (0 past S), so a stage copies its rows of each with one bulk
+//     copy.
+// (b) dK/dV, one CTA a (kv block, query head, sequence), the first kv
+//     block (the most causal work) first: K and V load once; 64-row tiles of
+//     Q and dO stream through a ring with their lse and delta. The
+//     transposed form, so no operand is transposed in registers: Sᵀ = K·Qᵀ
+//     and dPᵀ = V·dOᵀ from shared memory (Q and dO read K-major, as the
+//     forward reads K), Pᵀ = exp2(x - lse·log2 e) and dSᵀ =
+//     Pᵀ∘(dPᵀ - delta)·dcap·scale in registers, then dV += Pᵀ·dO and dK +=
+//     dSᵀ·Q with Pᵀ and dSᵀ as bf16 A fragments (dO and Q read MN-major, as
+//     the forward reads V): one copy of a Q and a dO tile feeds all four
+//     products, and the stage is released when both consumers' last product
+//     is done. A tile with no live pair for the consumer's keys is skipped;
+//     only tiles that cross a mask edge are masked. How the two consumers
+//     share the work follows the registers: a 64-row f32 accumulator of
+//     width D is D/2 registers a thread, beside 64 for Sᵀ and dPᵀ and 32
+//     for the fragments, so
+//     * D <= 64: each consumer owns 64 keys of a 128-key block and holds
+//       both its dK and its dV (32 + 32 registers);
+//     * D >= 112 splits by product over a 64-key block: consumer 0 computes
+//       Sᵀ, writes Pᵀ·dcap·scale (f32, in its fragment order) to shared
+//       memory between two named barriers and accumulates dV; consumer 1
+//       computes dPᵀ, reads it, forms dSᵀ and accumulates dK. Holding both
+//       at D = 128 spills ~940 bytes a thread, and this launch then takes
+//       3.2 ms at llama3-8b S = 4096 against 1.0 split
+//       (scripts/attn_bwd_variants.py). D = 256: K, V 64 KB, two Q/dO stages
+//       128 KB, 16 KB for Pᵀ; it still spills ~400 bytes.
+//     Grid: one CTA a query head, not a kv head as the FFMA kernel had it
+//     (16 x 8 = 128 CTAs at llama3-8b S = 2048, half the card idle behind
+//     the first block's 16x causal work): llama3-8b (32/8 heads, 64-key
+//     blocks) runs 32 x 32 = 1,024 CTAs at S = 2048 and 2,048 at S = 4096
+//     on 132 SMs; the heaviest holds 32 of 16,896 and 64 of 66,560 Q/dO
+//     tiles, and the grid's order starts it first. With G > 1 query heads a
+//     kv head, (b) writes each query head's dK and dV in f32 to a scratch
+//     (B, Skv, Hq, D) x 2 that the wrapper allocates (134 MB at S = 4096);
+//     G = 1 (zamba2-7b, whisper) writes them straight out.
+// (c) dQ, one CTA a (query block of 128 rows, head, sequence), the last
+//     block (the most causal work) first: Q and dO load once, K and V tiles
+//     (64 keys; 32 at D = 256, so that Q, dO and two stages fit) stream
+//     through a ring; each consumer owns 64 query rows: S = Q·Kᵀ and dP =
+//     dO·Vᵀ from shared memory, dS in registers as bf16 A fragments, dQ +=
+//     dS·K (K read MN-major). Where the items are fewer than the SMs
+//     (whisper's 17 x 1500 cross-attention: 6), each block's key tiles are
+//     split over up to 16 CTAs that write f32 partials.
+// (d) the sums, one launch: dK and dV over the G query heads, dQ over its
+//     key splits, each in a fixed order, cast to bf16 (none where G = 1 and
+//     dQ is not split).
+// D = 112 and D = 32 compute at widths 128 and 64, as the forward does: the
+// tensor maps are D wide, so the TMA zero-fills the last slab's columns past
+// D, the products' extra columns come out 0, and only D columns are
+// stored. Rows past S or Skv are zero-filled on load, masked, never stored.
+// Rounding: P and dS enter their products as bf16 (as P does in the
+// forward); every sum is f32.
+//
+// f32 (the reduced configs, and the card-against-CPU train check, which
+// holds the card to 1e-5 where TF32 would not) runs exact FFMA kernels from
+// f32 tiles in shared memory, three launches: (a) delta, one warp a row;
+// (b) dK/dV, one CTA a (kv block, kv head, sequence) walking the G query
+// heads and, for each, the query blocks whose causal/window band reaches
+// its keys, recomputing S, P and dS; (c) dQ, one CTA a (query block, head,
+// sequence) over its band's kv blocks. Layout: a 16 x 16 thread grid; a
+// thread holds a strided micro-tile of S and dP (rows ty + 16a, keys tx +
+// 16b) and strided columns tx + 16c of its accumulator rows; tiles are rows
+// of D + 1 floats (an odd stride: the 16 rows a warp reads lie in 16 banks).
+// D = 256 takes 32-row tiles (shared memory).
 
 constexpr int BWD_THREADS = 256;
 template <int D> struct BwdCfg { static constexpr int BQ = 64, BKV = 64; };
@@ -1069,16 +1151,9 @@ struct BwdArgs {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16_rn(x);
 }
 
 // rows [r0, r0 + R) of head h of a contiguous (B, L, H, D) tensor into an
@@ -1371,23 +1446,15 @@ int bwd_launch(const BwdArgs& a, cudaStream_t stream) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   auto kkv = flash_bwd_dkdv_kernel<D, T>;
-  err = cudaFuncSetAttribute(kkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM_KV);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return (int)err;
-  }
+  err = set_smem(kkv, SMEM_KV);
+  if (err != cudaSuccess) return (int)err;
   kkv<<<dim3((a.Skv + BKV - 1) / BKV, a.Hkv, a.B), BWD_THREADS, SMEM_KV,
         stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   auto kq = flash_bwd_dq_kernel<D, T>;
-  err = cudaFuncSetAttribute(kq, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM_Q);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return (int)err;
-  }
+  err = set_smem(kq, SMEM_Q);
+  if (err != cudaSuccess) return (int)err;
   kq<<<dim3((a.S + BQ - 1) / BQ, a.Hq, a.B), BWD_THREADS, SMEM_Q, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -1400,6 +1467,803 @@ int bwd_d(int D, const BwdArgs& a, cudaStream_t stream) {
     case 112: return bwd_launch<112, T>(a, stream);
     case 128: return bwd_launch<128, T>(a, stream);
     case 256: return bwd_launch<256, T>(a, stream);
+    default: return ERR_HEAD_DIM;
+  }
+}
+
+
+// ---- K5-bwd, bf16: wgmma fed by TMA/mbarrier rings (see the note above) ----
+
+constexpr int BWD_ROWS = 64;      // query rows a dK/dV stage, and a dQ consumer's
+constexpr int BWD_PAD = BQ;       // scratch rows padded to a dQ block
+constexpr int BAR_W_FULL = 1;     // named barriers of the split by product
+constexpr int BAR_W_EMPTY = 2;
+
+template <int D> struct BwdTc {
+  static constexpr int DC = (D + TMA_BOX - 1) / TMA_BOX * TMA_BOX;  // compute width
+  static constexpr int SLABS = DC / TMA_BOX;
+  static constexpr bool SPLIT = DC >= 128;     // one consumer a product
+  // (b) dK/dV: keys a CTA, Q/dO ring depth; K, V, STAGES x (Q, dO), lse and
+  // delta, and with SPLIT the 64 x 64 f32 Pᵀ·dcap·scale
+  static constexpr int BKV = SPLIT ? 64 : 128;
+  static constexpr int KV_STAGES = DC == 256 ? 2 : 4;
+  static constexpr int KV_SLAB = BKV * SLAB_ROW_BYTES;
+  static constexpr int KV_TILE = SLABS * KV_SLAB;
+  static constexpr int R_SLAB = BWD_ROWS * SLAB_ROW_BYTES;
+  static constexpr int R_TILE = SLABS * R_SLAB;
+  static constexpr int W_BYTES = SPLIT ? 64 * 64 * 4 : 0;
+  static constexpr int KV_SMEM = SMEM_ALIGN + 2 * KV_TILE +
+                                 2 * KV_STAGES * R_TILE +
+                                 2 * KV_STAGES * BWD_ROWS * 4 + W_BYTES +
+                                 BAR_BYTES;
+  // (c) dQ: keys a stage, K/V ring depth; Q, dO, STAGES x (K, V), lse, delta
+  static constexpr int BKT = DC == 256 ? 32 : 64;
+  static constexpr int Q_STAGES = DC == 256 ? 2 : 4;
+  static constexpr int T_SLAB = BKT * SLAB_ROW_BYTES;
+  static constexpr int T_TILE = SLABS * T_SLAB;
+  static constexpr int Q_SLAB = BQ * SLAB_ROW_BYTES;
+  static constexpr int Q_TILE = SLABS * Q_SLAB;
+  static constexpr int Q_SMEM = SMEM_ALIGN + 2 * Q_TILE +
+                                2 * Q_STAGES * T_TILE + 2 * BQ * 4 + BAR_BYTES;
+  static_assert(KV_SMEM <= 232448 && Q_SMEM <= 232448,
+                "more shared memory than a block can have");
+};
+
+struct BwdTcArgs {
+  const float* lse2;       // (B, Hq, S_pad): lse·log2(e), 0 past S
+  const float* delta;      // (B, Hq, S_pad): rowsum(dO∘o), 0 past S
+  __nv_bfloat16 *dq, *dk, *dv;
+  float* part;             // G > 1: (B, Skv, Hq, D) f32 dK partials, then dV's
+  float* dq_part;          // dq_split > 1: (dq_split, B, S, Hq, D) f32
+  int dq_split;            // key ranges a dQ block is split over
+  int B, S, Skv, Hq, Hkv, causal, window, kv_len, S_pad;
+  int n_kb, n_qb;          // kv blocks of BKV, query blocks of BQ
+  float softcap;           // > 0: the tanh softcap
+  float scale;             // 1/sqrt(D)
+  float scale_log2;        // scale·log2(e)
+  float cap_in;            // scale / softcap
+  float cap_out;           // softcap·log2(e)
+};
+
+// A raw score s = q·k in log2 units, and dcap = the softcap's chain rule
+// times scale: x = s·scale·log2(e) without a softcap; with one, t =
+// tanh(s·scale/cap), x = t·cap·log2(e), dcap = (1 - t²)·scale.
+__device__ __forceinline__ float bwd_logit(const BwdTcArgs& a, float s,
+                                           float& dcap) {
+  if (a.softcap > 0.f) {
+    const float th = tanhf(s * a.cap_in);
+    dcap = (1.f - th * th) * a.scale;
+    return th * a.cap_out;
+  }
+  dcap = a.scale;
+  return s * a.scale_log2;
+}
+__device__ __forceinline__ bool bwd_live(const BwdTcArgs& a, int q, int k) {
+  bool ok = k < a.kv_len && q < a.S;
+  if (a.causal) ok = ok && k <= q;
+  if (a.window > 0) ok = ok && q - k < a.window;
+  return ok;
+}
+// queries [q0, q0 + nq) against keys [k0, k0 + nk): no pair live ...
+__device__ __forceinline__ bool bwd_dead(const BwdTcArgs& a, int q0, int nq,
+                                         int k0, int nk) {
+  return q0 >= a.S || k0 >= a.kv_len || (a.causal && k0 > q0 + nq - 1) ||
+         (a.window > 0 && q0 - (k0 + nk - 1) >= a.window);
+}
+// ... or every pair live (no mask needed)
+__device__ __forceinline__ bool bwd_all_live(const BwdTcArgs& a, int q0,
+                                             int nq, int k0, int nk) {
+  return q0 + nq <= a.S && k0 + nk <= a.kv_len &&
+         (!a.causal || k0 + nk - 1 <= q0) &&
+         (a.window == 0 || q0 + nq - 1 - k0 < a.window);
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// (a) each row of (B, Hq, S_pad): delta = Σ_d dO·o and lse·log2(e), both 0
+// past S; one warp a row, 4 columns a lane
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ o,
+                      const __nv_bfloat16* __restrict__ dO,
+                      const float* __restrict__ lse, float* __restrict__ lse2,
+                      float* __restrict__ delta, int B, int S, int Hq, int D,
+                      int S_pad) {
+  const long long row =
+      ((long long)blockIdx.x * BWD_THREADS + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= (long long)B * Hq * S_pad) return;
+  const int s = (int)(row % S_pad);
+  const long long bh = row / S_pad;            // b * Hq + h
+  float acc = 0.f;
+  if (s < S) {
+    const long long b = bh / Hq;
+    const int h = (int)(bh % Hq);
+    const size_t at = ((size_t)(b * S + s) * Hq + h) * D;
+    for (int d = 4 * lane; d < D; d += 128) {
+      const uint2 x = *reinterpret_cast<const uint2*>(o + at + d);
+      const uint2 y = *reinterpret_cast<const uint2*>(dO + at + d);
+      acc = fmaf(bf16_lo(x.x), bf16_lo(y.x), acc);
+      acc = fmaf(bf16_hi(x.x), bf16_hi(y.x), acc);
+      acc = fmaf(bf16_lo(x.y), bf16_lo(y.y), acc);
+      acc = fmaf(bf16_hi(x.y), bf16_hi(y.y), acc);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    delta[row] = acc;
+    lse2[row] = s < S ? lse[bh * S + s] * LOG2E : 0.f;
+  }
+}
+
+// Rows `kr` and `kr + 8` of a consumer's 64 x DC accumulator (columns 8c +
+// 2t, 8c + 2t + 1) to keys kr.. of head `head`: bf16 into `out` (B, Skv,
+// Hkv, D), or, where `part` is not null, f32 into part (B, Skv, Hq, D).
+template <int D, int N>
+__device__ __forceinline__ void bwd_store_rows(const BwdTcArgs& a,
+                                               const float (&acc)[N], int kr,
+                                               int t, int b, int h, int hk,
+                                               __nv_bfloat16* out,
+                                               float* part) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = kr + 8 * r;
+    if (key >= a.Skv) continue;
+    if (part == nullptr) {
+      __nv_bfloat16* dst =
+          out + ((size_t)(b * a.Skv + key) * a.Hkv + hk) * D + 2 * t;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+        *reinterpret_cast<uint32_t*>(dst + 8 * c) =
+            pack_bf16(acc[4 * c + 2 * r], acc[4 * c + 2 * r + 1]);
+    } else {
+      float* dst = part + ((size_t)(b * a.Skv + key) * a.Hq + h) * D + 2 * t;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+        *reinterpret_cast<float2*>(dst + 8 * c) =
+            make_float2(acc[4 * c + 2 * r], acc[4 * c + 2 * r + 1]);
+    }
+  }
+}
+
+// (b) dK and dV of one kv block for one query head of one sequence
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_do,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const BwdTcArgs a) {
+  using C = BwdTc<D>;
+  constexpr int STAGES = C::KV_STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + SMEM_ALIGN - 1) & ~uint32_t(SMEM_ALIGN - 1);
+  const uint32_t sK = base;
+  const uint32_t sV = sK + C::KV_TILE;
+  const uint32_t sQ = sV + C::KV_TILE;                   // STAGES Q tiles
+  const uint32_t sdO = sQ + STAGES * C::R_TILE;          // STAGES dO tiles
+  const uint32_t sL = sdO + STAGES * C::R_TILE;          // STAGES x 64 floats
+  const uint32_t sDl = sL + STAGES * BWD_ROWS * 4;       // STAGES x 64 floats
+  const uint32_t sW = sDl + STAGES * BWD_ROWS * 4;       // SPLIT: 64 x 64 f32
+  const uint32_t bars = sW + C::W_BYTES;
+  const uint32_t kv_full = bars;
+  auto full = [&](int s) { return bars + 8u * (1 + s); };
+  auto empty = [&](int s) { return bars + 8u * (1 + STAGES + s); };
+  auto f32_at = [&](uint32_t addr) {
+    return reinterpret_cast<float*>(smem_raw + (addr - raw));
+  };
+
+  // the item: kv block (the first, with the most causal work, first), then
+  // sequence and query head
+  const int per_block = a.B * a.Hq;
+  const int k0 = (int)(blockIdx.x / per_block) * C::BKV;
+  const int b = (int)(blockIdx.x % per_block) / a.Hq;
+  const int h = (int)(blockIdx.x % a.Hq);
+  const int hk = h / (a.Hq / a.Hkv);
+  // the 64-row query tiles whose band reaches keys [k0, k0 + BKV)
+  const int q_begin = a.causal ? k0 : 0;
+  int q_end = a.S;
+  if (a.window > 0) q_end = min(q_end, k0 + C::BKV - 1 + a.window);
+  if (k0 >= a.kv_len) q_end = q_begin;
+  const int t_begin = q_begin / BWD_ROWS;
+  const int t_end =
+      q_end > q_begin ? (q_end + BWD_ROWS - 1) / BWD_ROWS : t_begin;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    // ===== producer: one thread issues every copy =====
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 128 * CONSUMERS) {
+      mbar_expect_tx(kv_full, 2 * C::KV_TILE);
+      for (int s = 0; s < C::SLABS; ++s) {
+        tma_load(sK + s * C::KV_SLAB, &tm_k, kv_full, s * TMA_BOX, hk, k0, b);
+        tma_load(sV + s * C::KV_SLAB, &tm_v, kv_full, s * TMA_BOX, hk, k0, b);
+      }
+      const size_t lrow = ((size_t)b * a.Hq + h) * a.S_pad;
+      int stage = 0, phase = 0;
+      for (int tq = t_begin; tq < t_end; ++tq) {
+        const int q0 = tq * BWD_ROWS;
+        mbar_wait(empty(stage), phase ^ 1);
+        mbar_expect_tx(full(stage), 2 * C::R_TILE + 2 * BWD_ROWS * 4);
+        for (int s = 0; s < C::SLABS; ++s) {
+          tma_load(sQ + stage * C::R_TILE + s * C::R_SLAB, &tm_q, full(stage),
+                   s * TMA_BOX, h, q0, b);
+          tma_load(sdO + stage * C::R_TILE + s * C::R_SLAB, &tm_do,
+                   full(stage), s * TMA_BOX, h, q0, b);
+        }
+        bulk_load(sL + stage * BWD_ROWS * 4, a.lse2 + lrow + q0,
+                  BWD_ROWS * 4, full(stage));
+        bulk_load(sDl + stage * BWD_ROWS * 4, a.delta + lrow + q0,
+                  BWD_ROWS * 4, full(stage));
+        if (++stage == STAGES) { stage = 0; phase ^= 1; }
+      }
+    }
+  } else {
+    // ===== consumers =====
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int tw = threadIdx.x % 128;
+    const int warp = tw / 32;
+    const int lane = tw % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    // this consumer's keys: its own 64 of the block, or (SPLIT) all 64
+    const uint32_t koff = C::SPLIT ? 0u : wg * 64u * SLAB_ROW_BYTES;
+    const int kw0 = k0 + (C::SPLIT ? 0 : wg * 64);
+    const int kr = kw0 + warp * 16 + g;              // its rows kr, kr + 8
+    float* const part = a.part;                      // dK's, then dV's
+    float* const part_v =
+        part == nullptr ? nullptr : part + (size_t)a.B * a.Skv * a.Hq * D;
+
+    // Xᵀ = rows·colsᵀ: this consumer's 64 K (or V) rows against the 64-row
+    // Q (or dO) tile at `cols`, both K-major, D / 16 steps
+    auto issue_t = [&](float (&x)[32], uint32_t rows, uint32_t cols) {
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t off = (ks % 4) * 32;
+        Wgmma<64>::ss(x,
+                      sw128_desc(rows + (ks / 4) * C::KV_SLAB + koff + off, 0),
+                      sw128_desc(cols + (ks / 4) * C::R_SLAB + off, 0),
+                      ks > 0);
+      }
+    };
+    // acc += Xᵀ·M: A the bf16 fragments of a 64-key x 64-query tile, B the
+    // 64-row tile at `mn` (dO or Q) read MN-major, 16 queries a step
+    auto issue_rs = [&](float (&acc)[C::DC / 2], const uint32_t (&x)[4][4],
+                        uint32_t mn) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Wgmma<C::DC>::rs(acc, x[kk],
+                         sw128_desc(mn + kk * 16 * SLAB_ROW_BYTES, C::R_SLAB),
+                         1);
+    };
+    auto to_frags = [&](const float (&x)[32], uint32_t (&f)[4][4]) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          f[kk][e] = pack_bf16(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]);
+    };
+    // Pᵀ in place of Sᵀ, 0 on masked pairs, and each(i, Pᵀ·dcap·scale,
+    // delta) per element (element i's query is q0 + 8 (i >> 2) + 2t + (i &
+    // 1), its key kr + 8 ((i >> 1) & 1))
+    auto probs = [&](float (&x)[32], int q0, int stage, auto&& each) {
+      const float2* L =
+          reinterpret_cast<const float2*>(f32_at(sL + stage * BWD_ROWS * 4));
+      const float2* Dl =
+          reinterpret_cast<const float2*>(f32_at(sDl + stage * BWD_ROWS * 4));
+      const bool edge = !bwd_all_live(a, q0, BWD_ROWS, kw0, 64);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float2 l2 = L[4 * c + t];
+        const float2 dl = Dl[4 * c + t];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * c + e;
+          float dcap;
+          const float lg = bwd_logit(a, x[i], dcap);
+          const bool ok = !edge || bwd_live(a, q0 + 8 * c + 2 * t + (e & 1),
+                                            kr + 8 * ((e >> 1) & 1));
+          const float p = ok ? ex2(lg - ((e & 1) ? l2.y : l2.x)) : 0.f;
+          x[i] = p;
+          each(i, p * dcap, (e & 1) ? dl.y : dl.x);
+        }
+      }
+    };
+
+    mbar_wait(kv_full, 0);
+    int stage = 0, phase = 0;
+    if constexpr (!C::SPLIT) {
+      float dv[C::DC / 2], dk[C::DC / 2];
+#pragma unroll
+      for (int x = 0; x < C::DC / 2; ++x) dv[x] = dk[x] = 0.f;
+      for (int tq = t_begin; tq < t_end; ++tq) {
+        const int q0 = tq * BWD_ROWS;
+        mbar_wait(full(stage), phase);
+        if (!bwd_dead(a, q0, BWD_ROWS, kw0, 64)) {
+          const uint32_t q_at = sQ + stage * C::R_TILE;
+          const uint32_t do_at = sdO + stage * C::R_TILE;
+          float s[32], dp[32];
+          wgmma_fence();
+          issue_t(s, sK, q_at);
+          issue_t(dp, sV, do_at);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(s);
+          fence_regs(dp);
+          // Pᵀ, and dSᵀ = Pᵀ∘(dPᵀ - delta)·dcap·scale in place of dPᵀ
+          probs(s, q0, stage, [&](int i, float pd, float dl) {
+            dp[i] = pd * (dp[i] - dl);
+          });
+          uint32_t pa[4][4], da[4][4];
+          to_frags(s, pa);
+          to_frags(dp, da);
+          wgmma_fence();
+          issue_rs(dv, pa, do_at);
+          issue_rs(dk, da, q_at);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dv);
+          fence_regs(dk);
+        }
+        if (lane == 0) mbar_arrive(empty(stage));
+        if (++stage == STAGES) { stage = 0; phase ^= 1; }
+      }
+      bwd_store_rows<D>(a, dk, kr, t, b, h, hk, a.dk, part);
+      bwd_store_rows<D>(a, dv, kr, t, b, h, hk, a.dv, part_v);
+    } else {
+      // consumer 0: Sᵀ, Pᵀ, dV; consumer 1: dPᵀ, dSᵀ, dK. Pᵀ·dcap·scale
+      // passes through sW (fragment order: element i of thread tw at
+      // i * 128 + tw) between BAR_W_FULL (written) and BAR_W_EMPTY (read).
+      float acc[C::DC / 2];
+#pragma unroll
+      for (int x = 0; x < C::DC / 2; ++x) acc[x] = 0.f;
+      float* W = f32_at(sW);
+      if (wg == 1) named_bar_arrive(BAR_W_EMPTY, 2 * 128);
+      for (int tq = t_begin; tq < t_end; ++tq) {
+        const int q0 = tq * BWD_ROWS;
+        mbar_wait(full(stage), phase);
+        if (!bwd_dead(a, q0, BWD_ROWS, kw0, 64)) {
+          const uint32_t q_at = sQ + stage * C::R_TILE;
+          const uint32_t do_at = sdO + stage * C::R_TILE;
+          float x[32];
+          uint32_t fa[4][4];
+          wgmma_fence();
+          issue_t(x, wg == 0 ? sK : sV, wg == 0 ? q_at : do_at);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(x);
+          if (wg == 0) {
+            named_bar_sync(BAR_W_EMPTY, 2 * 128);
+            probs(x, q0, stage, [&](int i, float pd, float) {
+              W[i * 128 + tw] = pd;
+            });
+            __threadfence_block();
+            named_bar_arrive(BAR_W_FULL, 2 * 128);
+            to_frags(x, fa);
+            wgmma_fence();
+            issue_rs(acc, fa, do_at);
+          } else {
+            const float2* Dl = reinterpret_cast<const float2*>(
+                f32_at(sDl + stage * BWD_ROWS * 4));
+            named_bar_sync(BAR_W_FULL, 2 * 128);
+#pragma unroll
+            for (int c = 0; c < 8; ++c) {
+              const float2 dl = Dl[4 * c + t];
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int i = 4 * c + e;
+                x[i] = W[i * 128 + tw] * (x[i] - ((e & 1) ? dl.y : dl.x));
+              }
+            }
+            __threadfence_block();
+            named_bar_arrive(BAR_W_EMPTY, 2 * 128);
+            to_frags(x, fa);
+            wgmma_fence();
+            issue_rs(acc, fa, q_at);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(acc);
+        }
+        if (lane == 0) mbar_arrive(empty(stage));
+        if (++stage == STAGES) { stage = 0; phase ^= 1; }
+      }
+      if (wg == 0) named_bar_sync(BAR_W_EMPTY, 2 * 128);  // the last arrival
+      if (wg == 0)
+        bwd_store_rows<D>(a, acc, kr, t, b, h, hk, a.dv, part_v);
+      else
+        bwd_store_rows<D>(a, acc, kr, t, b, h, hk, a.dk, part);
+    }
+  }
+}
+
+// (d) the fixed-order sums, one launch for every job: output element e (bf16)
+// of a job = Σ_{g < n} src[(e / D) outer + e % D + g step], g = 0, 1, ...
+// in order; 4 elements a thread. The jobs: dK and dV over the G query heads
+// of a kv head (outer G·D, step D), dQ over its key splits (outer D, step
+// one partial).
+struct SumJob {
+  const float* src;
+  __nv_bfloat16* dst;
+  long long n4;         // output elements / 4
+  long long outer;      // partials' offset of one D-row of the output
+  long long step;       // from one partial to the next
+  int n;                // partials summed
+  int blocks;           // this job's thread blocks
+};
+struct SumJobs {
+  SumJob job[3];
+  int count;
+};
+
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_sum_kernel(const SumJobs jobs, int D) {
+  int j = 0;
+  int blk = blockIdx.x;
+  while (j + 1 < jobs.count && blk >= jobs.job[j].blocks) {
+    blk -= jobs.job[j].blocks;
+    ++j;
+  }
+  const SumJob& job = jobs.job[j];
+  const long long i = (long long)blk * BWD_THREADS + threadIdx.x;
+  if (i >= job.n4) return;
+  const long long e = 4 * i;
+  const float* p = job.src + (e / D) * job.outer + e % D;
+  float4 acc = *reinterpret_cast<const float4*>(p);
+  for (int g = 1; g < job.n; ++g) {
+    const float4 x = *reinterpret_cast<const float4*>(p + g * job.step);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  uint2 o;
+  o.x = pack_bf16(acc.x, acc.y);
+  o.y = pack_bf16(acc.z, acc.w);
+  *reinterpret_cast<uint2*>(job.dst + e) = o;
+}
+
+// (c) dQ of one query block of one head of one sequence, over one of the
+// block's `dq_split` contiguous ranges of key tiles (f32 partials into
+// a.dq_part where dq_split > 1)
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const BwdTcArgs a) {
+  using C = BwdTc<D>;
+  constexpr int STAGES = C::Q_STAGES;
+  constexpr int BKT = C::BKT;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + SMEM_ALIGN - 1) & ~uint32_t(SMEM_ALIGN - 1);
+  const uint32_t sQ = base;
+  const uint32_t sdO = sQ + C::Q_TILE;
+  const uint32_t sK = sdO + C::Q_TILE;                   // STAGES K tiles
+  const uint32_t sV = sK + STAGES * C::T_TILE;           // STAGES V tiles
+  const uint32_t sL = sV + STAGES * C::T_TILE;           // BQ floats
+  const uint32_t sDl = sL + BQ * 4;                      // BQ floats
+  const uint32_t bars = sDl + BQ * 4;
+  const uint32_t q_full = bars;
+  auto full = [&](int s) { return bars + 8u * (1 + s); };
+  auto empty = [&](int s) { return bars + 8u * (1 + STAGES + s); };
+  auto f32_at = [&](uint32_t addr) {
+    return reinterpret_cast<const float*>(smem_raw + (addr - raw));
+  };
+
+  // the item: query block (the last, with the most causal work, first),
+  // then sequence, head and key split
+  const int item = (int)blockIdx.x / a.dq_split;
+  const int split = (int)blockIdx.x % a.dq_split;
+  const int per_block = a.B * a.Hq;
+  const int q0 = (a.n_qb - 1 - item / per_block) * BQ;
+  const int b = (item % per_block) / a.Hq;
+  const int h = item % a.Hq;
+  const int hk = h / (a.Hq / a.Hkv);
+  // the key tiles the block's band reaches, and this split's share of them
+  int k_end = a.kv_len;
+  if (a.causal) k_end = min(k_end, min(q0 + BQ, a.S));
+  const int k_begin = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  const int jb = k_begin / BKT;
+  const int n_tiles = k_end > k_begin ? (k_end + BKT - 1) / BKT - jb : 0;
+  const int j_begin = jb + n_tiles * split / a.dq_split;
+  const int j_end = jb + n_tiles * (split + 1) / a.dq_split;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    // ===== producer: one thread issues every copy =====
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 128 * CONSUMERS) {
+      const size_t lrow = ((size_t)b * a.Hq + h) * a.S_pad;
+      mbar_expect_tx(q_full, 2 * C::Q_TILE + 2 * BQ * 4);
+      for (int s = 0; s < C::SLABS; ++s) {
+        tma_load(sQ + s * C::Q_SLAB, &tm_q, q_full, s * TMA_BOX, h, q0, b);
+        tma_load(sdO + s * C::Q_SLAB, &tm_do, q_full, s * TMA_BOX, h, q0, b);
+      }
+      bulk_load(sL, a.lse2 + lrow + q0, BQ * 4, q_full);
+      bulk_load(sDl, a.delta + lrow + q0, BQ * 4, q_full);
+      int stage = 0, phase = 0;
+      for (int j = j_begin; j < j_end; ++j) {
+        mbar_wait(empty(stage), phase ^ 1);
+        mbar_expect_tx(full(stage), 2 * C::T_TILE);
+        for (int s = 0; s < C::SLABS; ++s) {
+          tma_load(sK + stage * C::T_TILE + s * C::T_SLAB, &tm_k, full(stage),
+                   s * TMA_BOX, hk, j * BKT, b);
+          tma_load(sV + stage * C::T_TILE + s * C::T_SLAB, &tm_v, full(stage),
+                   s * TMA_BOX, hk, j * BKT, b);
+        }
+        if (++stage == STAGES) { stage = 0; phase ^= 1; }
+      }
+    }
+  } else {
+    // ===== consumers: 64 query rows each =====
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int tw = threadIdx.x % 128;
+    const int warp = tw / 32;
+    const int lane = tw % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int w0 = q0 + wg * WG_ROWS;
+    const int rq = w0 + warp * 16 + g;               // its rows rq, rq + 8
+    const uint32_t qoff = wg * WG_ROWS * SLAB_ROW_BYTES;
+    float dq[C::DC / 2];
+#pragma unroll
+    for (int x = 0; x < C::DC / 2; ++x) dq[x] = 0.f;
+
+    mbar_wait(q_full, 0);
+    float l2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l2[r] = f32_at(sL)[rq - q0 + 8 * r];
+      dl[r] = f32_at(sDl)[rq - q0 + 8 * r];
+    }
+    int stage = 0, phase = 0;
+    for (int j = j_begin; j < j_end; ++j) {
+      const int k0 = j * BKT;
+      mbar_wait(full(stage), phase);
+      if (!bwd_dead(a, w0, WG_ROWS, k0, BKT)) {
+        const uint32_t k_at = sK + stage * C::T_TILE;
+        const uint32_t v_at = sV + stage * C::T_TILE;
+        float s[BKT / 2], dp[BKT / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) {
+          const uint32_t off = (ks % 4) * 32;
+          Wgmma<BKT>::ss(s,
+                         sw128_desc(sQ + (ks / 4) * C::Q_SLAB + qoff + off, 0),
+                         sw128_desc(k_at + (ks / 4) * C::T_SLAB + off, 0),
+                         ks > 0);
+        }
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) {
+          const uint32_t off = (ks % 4) * 32;
+          Wgmma<BKT>::ss(dp,
+                         sw128_desc(sdO + (ks / 4) * C::Q_SLAB + qoff + off, 0),
+                         sw128_desc(v_at + (ks / 4) * C::T_SLAB + off, 0),
+                         ks > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        // dS = P∘(dP - delta)·dcap·scale, 0 on masked pairs (row rq + 8r,
+        // key k0 + 8 (i >> 2) + 2t + (i & 1))
+        const bool edge = !bwd_all_live(a, w0, WG_ROWS, k0, BKT);
+#pragma unroll
+        for (int i = 0; i < BKT / 2; ++i) {
+          const int r = (i >> 1) & 1;
+          float dcap;
+          const float p = ex2(bwd_logit(a, s[i], dcap) - l2[r]);
+          const bool ok =
+              !edge || bwd_live(a, rq + 8 * r, k0 + 8 * (i >> 2) + 2 * t + (i & 1));
+          s[i] = ok ? p * (dp[i] - dl[r]) * dcap : 0.f;
+        }
+        uint32_t da[BKT / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BKT / 16; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            da[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+        // dQ += dS·K: K's tile is [key][d], MN-major for B; 16 keys a step
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BKT / 16; ++kk)
+          Wgmma<C::DC>::rs(dq, da[kk],
+                           sw128_desc(k_at + kk * 16 * SLAB_ROW_BYTES, C::T_SLAB),
+                           1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+      }
+      if (lane == 0) mbar_arrive(empty(stage));
+      if (++stage == STAGES) { stage = 0; phase ^= 1; }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = rq + 8 * r;
+      if (row >= a.S) continue;
+      const size_t at = ((size_t)(b * a.S + row) * a.Hq + h) * D + 2 * t;
+      if (a.dq_split == 1) {
+        __nv_bfloat16* dst = a.dq + at;
+#pragma unroll
+        for (int c = 0; c < D / 8; ++c)
+          *reinterpret_cast<uint32_t*>(dst + 8 * c) =
+              pack_bf16(dq[4 * c + 2 * r], dq[4 * c + 2 * r + 1]);
+      } else {
+        float* dst = a.dq_part + (size_t)split * a.B * a.S * a.Hq * D + at;
+#pragma unroll
+        for (int c = 0; c < D / 8; ++c)
+          *reinterpret_cast<float2*>(dst + 8 * c) =
+              make_float2(dq[4 * c + 2 * r], dq[4 * c + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+// dQ's key splits: one unless the (query block, head, sequence) items are
+// fewer than the SMs (whisper's 17 x 1500 cross-attention: 6 items), then
+// enough to fill them, at least two key tiles a split, at most 16
+int dq_splits(int B, int S, int Skv, int Hq, int D) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    cudaGetLastError();
+    sms = 132;
+  }
+  const int bkt = D > 128 ? 32 : 64;
+  const long long items = (long long)((S + BQ - 1) / BQ) * B * Hq;
+  if (items >= sms) return 1;
+  const int by_sms = (int)((sms + items - 1) / items);
+  const int by_tiles = max(1, (Skv + bkt - 1) / bkt / 2);
+  return min(16, min(by_sms, by_tiles));
+}
+
+// The bf16 backward's scratch, in floats: lse·log2(e) and delta, (B, Hq,
+// S_pad) each; with G > 1 the f32 partials of dK and dV, (B, Skv, Hq, D)
+// each; with dQ split, its f32 partials, (splits, B, S, Hq, D).
+long long bwd_tc_scratch(int B, int S, int Skv, int Hq, int Hkv, int D) {
+  const long long s_pad = (S + BWD_PAD - 1) / BWD_PAD * BWD_PAD;
+  long long n = 2LL * B * Hq * s_pad;
+  if (Hq != Hkv) n += 2LL * B * Skv * Hq * D;
+  const int splits = dq_splits(B, S, Skv, Hq, D);
+  if (splits > 1) n += (long long)splits * B * S * Hq * D;
+  return n;
+}
+
+template <int D>
+int bwd_tc(const BwdArgs& a, float* scratch, cudaStream_t stream) {
+  using C = BwdTc<D>;
+  static_assert(C::BKT == (D > 128 ? 32 : 64), "dq_splits' key tile");
+  BwdTcArgs t;
+  t.S_pad = (a.S + BWD_PAD - 1) / BWD_PAD * BWD_PAD;
+  const size_t rows = (size_t)a.B * a.Hq * t.S_pad;
+  const size_t kv_part = (size_t)a.B * a.Skv * a.Hq * D;
+  float* lse2 = scratch;
+  float* delta = scratch + rows;
+  float* rest = scratch + 2 * rows;
+  t.lse2 = lse2;
+  t.delta = delta;
+  t.part = nullptr;
+  if (a.Hq != a.Hkv) {
+    t.part = rest;
+    rest += 2 * kv_part;
+  }
+  t.dq_split = dq_splits(a.B, a.S, a.Skv, a.Hq, D);
+  t.dq_part = t.dq_split > 1 ? rest : nullptr;
+  t.dq = static_cast<__nv_bfloat16*>(a.dq);
+  t.dk = static_cast<__nv_bfloat16*>(a.dk);
+  t.dv = static_cast<__nv_bfloat16*>(a.dv);
+  t.B = a.B; t.S = a.S; t.Skv = a.Skv; t.Hq = a.Hq; t.Hkv = a.Hkv;
+  t.causal = a.causal; t.window = a.window; t.kv_len = a.kv_len;
+  t.n_kb = (a.Skv + C::BKV - 1) / C::BKV;
+  t.n_qb = (a.S + BQ - 1) / BQ;
+  t.softcap = a.softcap;
+  t.scale = a.scale;
+  t.scale_log2 = a.scale * LOG2E;
+  t.cap_in = a.softcap > 0.f ? a.scale / a.softcap : 0.f;
+  t.cap_out = a.softcap * LOG2E;
+
+  // (a) delta and lse·log2(e)
+  const int warps = BWD_THREADS / 32;
+  flash_bwd_prep_kernel<<<(unsigned)((rows + warps - 1) / warps), BWD_THREADS,
+                          0, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.o),
+      static_cast<const __nv_bfloat16*>(a.dO), a.lse, lse2, delta, a.B, a.S,
+      a.Hq, D, t.S_pad);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  // (b) dK/dV, 64-row Q/dO tiles against BKV-row K/V blocks
+  CUtensorMap tq, tdo, tk, tv;
+  int e = encode_bshd(&tq, a.q, a.B, a.S, a.Hq, D, BWD_ROWS);
+  if (!e) e = encode_bshd(&tdo, a.dO, a.B, a.S, a.Hq, D, BWD_ROWS);
+  if (!e) e = encode_bshd(&tk, a.k, a.B, a.Skv, a.Hkv, D, C::BKV);
+  if (!e) e = encode_bshd(&tv, a.v, a.B, a.Skv, a.Hkv, D, C::BKV);
+  if (e) return e;
+  auto kkv = flash_bwd_dkdv_wgmma_kernel<D>;
+  err = set_smem(kkv, C::KV_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kkv<<<(unsigned)(t.n_kb * a.B * a.Hq), TC_THREADS, C::KV_SMEM, stream>>>(
+      tq, tdo, tk, tv, t);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  // (c) dQ, 128-row Q/dO blocks against BKT-row K/V tiles
+  e = encode_bshd(&tq, a.q, a.B, a.S, a.Hq, D, BQ);
+  if (!e) e = encode_bshd(&tdo, a.dO, a.B, a.S, a.Hq, D, BQ);
+  if (!e) e = encode_bshd(&tk, a.k, a.B, a.Skv, a.Hkv, D, C::BKT);
+  if (!e) e = encode_bshd(&tv, a.v, a.B, a.Skv, a.Hkv, D, C::BKT);
+  if (e) return e;
+  auto kq = flash_bwd_dq_wgmma_kernel<D>;
+  err = set_smem(kq, C::Q_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kq<<<(unsigned)(t.n_qb * a.B * a.Hq * t.dq_split), TC_THREADS, C::Q_SMEM,
+       stream>>>(tq, tdo, tk, tv, t);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  // (d) the sums: dK and dV over the G query heads, dQ over its splits
+  SumJobs jobs;
+  jobs.count = 0;
+  auto add = [&](const float* src, __nv_bfloat16* dst, long long n_out,
+                 long long outer, long long step, int n) {
+    SumJob& j = jobs.job[jobs.count++];
+    j.src = src; j.dst = dst; j.n4 = n_out / 4;
+    j.outer = outer; j.step = step; j.n = n;
+    j.blocks = (int)((j.n4 + BWD_THREADS - 1) / BWD_THREADS);
+  };
+  const long long kv_out = (long long)a.B * a.Skv * a.Hkv * D;
+  const long long q_out = (long long)a.B * a.S * a.Hq * D;
+  const int G = a.Hq / a.Hkv;
+  if (t.part != nullptr) {
+    add(t.part, t.dk, kv_out, (long long)G * D, D, G);
+    add(t.part + kv_part, t.dv, kv_out, (long long)G * D, D, G);
+  }
+  if (t.dq_part != nullptr) add(t.dq_part, t.dq, q_out, D, q_out, t.dq_split);
+  if (jobs.count == 0) return 0;
+  long long blocks = 0;
+  for (int j = 0; j < jobs.count; ++j) blocks += jobs.job[j].blocks;
+  flash_bwd_sum_kernel<<<(unsigned)blocks, BWD_THREADS, 0, stream>>>(jobs, D);
+  return (int)cudaGetLastError();
+}
+
+int bwd_bf16(int D, const BwdArgs& a, float* scratch, cudaStream_t stream) {
+  switch (D) {
+    case 32: return bwd_tc<32>(a, scratch, stream);
+    case 64: return bwd_tc<64>(a, scratch, stream);
+    case 112: return bwd_tc<112>(a, scratch, stream);
+    case 128: return bwd_tc<128>(a, scratch, stream);
+    case 256: return bwd_tc<256>(a, scratch, stream);
     default: return ERR_HEAD_DIM;
   }
 }
@@ -1427,16 +2291,27 @@ extern "C" int k5_flash_attention_fwd(const void* q, const void* k,
                          softcap, kv_len, scale, st);
 }
 
+// The f32 scratch k5_flash_attention_bwd takes, in floats: delta (B,Hq,S)
+// for f32; for bf16 delta and lse·log2(e) at rows padded to 128, and with
+// Hq != Hkv the f32 partials of dk and dv a query head (B,Skv,Hq,D) each.
+extern "C" long long k5_flash_attention_bwd_scratch(int B, int S, int Skv,
+                                                    int Hq, int Hkv, int D,
+                                                    int is_bf16) {
+  return is_bf16 ? bwd_tc_scratch(B, S, Skv, Hq, Hkv, D)
+                 : (long long)B * Hq * S;
+}
+
 // K5-bwd: the gradients of k5_flash_attention_fwd's output, from q, k, v,
 // o, the forward's lse and dO (all contiguous, o and dO (B,S,Hq,D) in q's
 // dtype) into dq (B,S,Hq,D) and dk, dv (B,Skv,Hkv,D) in that dtype, with
-// `delta` (B,Hq,S) f32 as scratch. Three launches on `stream`: delta =
-// rowsum(dO o), then dk/dv, then dq. Returns 0, a cudaError_t code or
-// ERR_HEAD_DIM.
+// `scratch` (k5_flash_attention_bwd_scratch floats, 16-byte aligned).
+// Launches on `stream`: f32 delta, dk/dv, dq (FFMA); bf16 prep, dk/dv, the
+// GQA sum where Hq != Hkv, dq (wgmma). Returns 0, a cudaError_t code or a
+// negative code of this file.
 extern "C" int k5_flash_attention_bwd(const void* q, const void* k,
                                       const void* v, const void* o,
                                       const void* lse, const void* dO,
-                                      void* delta, void* dq, void* dk,
+                                      void* scratch, void* dq, void* dk,
                                       void* dv, int B, int S, int Skv, int Hq,
                                       int Hkv, int D, int is_bf16, int causal,
                                       int window, float softcap, int kv_len,
@@ -1444,13 +2319,14 @@ extern "C" int k5_flash_attention_bwd(const void* q, const void* k,
   BwdArgs a;
   a.q = q; a.k = k; a.v = v; a.o = o; a.dO = dO;
   a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<float*>(delta);
+  a.delta = static_cast<float*>(scratch);
   a.dq = dq; a.dk = dk; a.dv = dv;
   a.B = B; a.S = S; a.Skv = Skv; a.Hq = Hq; a.Hkv = Hkv;
   a.causal = causal; a.window = window; a.kv_len = kv_len;
   a.softcap = softcap; a.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? bwd_d<__nv_bfloat16>(D, a, st) : bwd_d<float>(D, a, st);
+  return is_bf16 ? bwd_bf16(D, a, static_cast<float*>(scratch), st)
+                 : bwd_d<float>(D, a, st);
 }
 
 // Fault injection for the tests: the bf16 launches that follow ask for

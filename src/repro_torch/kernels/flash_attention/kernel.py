@@ -54,6 +54,8 @@ def library() -> ctypes.CDLL:
             vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
             ci, ci, ci, cf, ci, cf, vp]
         lib.k5_flash_attention_bwd.restype = ci
+        lib.k5_flash_attention_bwd_scratch.argtypes = [ci] * 7
+        lib.k5_flash_attention_bwd_scratch.restype = ctypes.c_longlong
         lib.k5_error_string.argtypes = [ci]
         lib.k5_error_string.restype = ctypes.c_char_p
         lib.k5_request_smem.argtypes = [ci]
@@ -364,9 +366,12 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                         seq_len: Optional[int] = None, block: int = 512):
     """The backward of ``flash_attention_fwd``: (dq, dk, dv) in the inputs'
     dtypes from q, k, v, its out and lse and the output's gradient dout.
-    CUDA tensors launch K5-bwd (three kernels on the current stream: delta,
-    dk/dv, dq; one count on ``flash_attention_bwd.launches``); CPU tensors
-    take ``flash_attention_bwd_plain`` over query blocks of ``block``."""
+    CUDA tensors launch K5-bwd (on the current stream, one count on
+    ``flash_attention_bwd.launches``: bf16 runs its wgmma kernels, prep,
+    dk/dv, dq and, where Hq != Hkv or dq's keys are split, one
+    fixed-order sum of their f32 partials; f32 its FFMA kernels, delta,
+    dk/dv, dq); CPU tensors take ``flash_attention_bwd_plain`` over query
+    blocks of ``block``."""
     if shape_only(q, k, v, out, lse, dout):
         grads = (torch.empty_like(q), torch.empty_like(k),
                  torch.empty_like(v))
@@ -380,15 +385,20 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     _check_bwd(q, k, v, out, lse, dout)
     _check_lengths(q, k, causal, window)
     B, S, Hq, D = q.shape
-    Skv = k.shape[1]
+    Skv, Hkv = k.shape[1], k.shape[2]
+    is_bf16 = int(q.dtype == torch.bfloat16)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
     lib = library()
+    # delta (and for bf16 lse·log2(e) and the GQA partials): the kernel's
+    # own count of floats
+    scratch = torch.empty(
+        lib.k5_flash_attention_bwd_scratch(B, S, Skv, Hq, Hkv, D, is_bf16),
+        dtype=torch.float32, device=q.device)
     err = lib.k5_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), dout.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, S, Skv, Hq, k.shape[2], D,
-        int(q.dtype == torch.bfloat16), int(bool(causal)), int(window or 0),
+        lse.data_ptr(), dout.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, S, Skv, Hq, Hkv, D,
+        is_bf16, int(bool(causal)), int(window or 0),
         float(attn_softcap or 0.0), _kv_len(k, seq_len), 1.0 / math.sqrt(D),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:

@@ -442,6 +442,15 @@ GPU_FLASH_TRAIN = [
      dict(causal=False)),
     ("internvl2_G8_bf16", 1, 273, 273, 64, 8, 128, torch.bfloat16,
      dict(causal=True)),
+    # the wgmma backward's edges: a window that is a multiple of no tile
+    # with G = 4 and B = 2; cross-attention at D = 112 (its 112-wide maps
+    # zero-fill the last slab) with G = 2; G = 1 at a training length
+    ("window100_G4_B2_bf16", 2, 333, 333, 8, 2, 128, torch.bfloat16,
+     dict(causal=True, window=100)),
+    ("cross_17x300_D112_bf16", 1, 17, 300, 4, 2, 112, torch.bfloat16,
+     dict(causal=False)),
+    ("G1_S4096_D128_bf16", 1, 4096, 4096, 8, 8, 128, torch.bfloat16,
+     dict(causal=True)),
 ]
 
 
@@ -543,6 +552,32 @@ def test_flash_grad_trains_through_the_kernels_on_card(cuda):
     want = flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=100)
     for a, b, w in zip(*grads, want):
         assert torch.equal(a, b) and torch.equal(a, w)
+
+
+GPU_FLASH_TRAIN_BF16 = [c for c in GPU_FLASH_TRAIN if c[7] == torch.bfloat16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B,Sq,Skv,Hq,Hkv,D,dtype,kw",
+                         GPU_FLASH_TRAIN_BF16,
+                         ids=[c[0] for c in GPU_FLASH_TRAIN_BF16])
+def test_flash_bwd_repeats_bit_for_bit_on_card(cuda, name, B, Sq, Skv, Hq,
+                                               Hkv, D, dtype, kw):
+    """K5-bwd's bf16 path at every bf16 training shape, D = 256 and the
+    softcap rows included: a second call on the same inputs gives the
+    same dq, dk and dv bit for bit (no atomics; the G query heads' partials
+    summed in a fixed order)."""
+    q, k, v = _qkv(7, B, Skv, Hq, Hkv, D, Sq=Sq)
+    do = np.random.default_rng(8).normal(size=q.shape).astype(np.float32)
+    q = _capped(q, kw)
+    q, k, v, do = (torch.from_numpy(a).to(cuda, dtype) for a in (q, k, v, do))
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    first = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    second = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    for gname, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), gname
+        assert bool(torch.isfinite(a.float()).all()), gname
 
 
 @pytest.mark.gpu
