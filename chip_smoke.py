@@ -20,7 +20,10 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    tensor cores) with the FFMA bound beside it, and its device kernels a
    call (one). K4 and K5 also at gemma2-2b's shapes (D=256, GQA 8/4,
    softcap 50, window 4096): a 17-token prompt, the 4-slot decode, the
-   4608-token prompt (windowed and global layers) and its decode step. At
+   4608-token prompt (windowed and global layers) and its decode step at
+   one and at 4 slots, each
+   K4 row with its split count, CTAs and clusters (the long cache's
+   splits outnumber one cluster: merged through scratch). At
    a softcap row q is scaled so the scores reach the cap, and the row
    fails unless dropping the softcap moves the plain output by well over
    the tolerance; its library call, ``flex_attention`` with the softcap
@@ -59,9 +62,12 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
 4d. gemma2-2b at full width (26 layers, d=2304, D=256, vocab 256000) served
    with host and chunked prefill, its 17-token logits against the plain
    path (argmax equal), one 4608-token prompt past its 4096 window through
-   K5 and the plain attention; beside each, controls (the plain path with
-   the softcap removed, a window of 8, the window removed), of which the
-   mask faults must move the logits by more than the tolerance;
+   K5 and the plain attention, and the kernel path's decode step at that
+   4609-position cache timed (host and device-busy ms, K4's 26 launches a
+   step; context only: the step is host-bound); beside each, controls
+   (the plain path with the softcap removed, a window of 8, the window
+   removed), of which the mask faults must move the logits by more than
+   the tolerance;
    mistral-nemo-12b (40 layers, d=5120) served with host prefill and its
    logits against the plain path (its top-two margin printed);
 4e. zamba2-7b at full width (81 mamba2 layers of 112 heads x 64, state
@@ -148,9 +154,10 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    against the unsharded K4 and the plain version (bf16 2e-2, f32 1e-4),
    each shard call's device time, the merge's, and the plain partial's,
    SDPA's over the shard's live keys and the bound at the longest live
-   shard; llama3-8b at full width (32 layers) on a (1, 1) ('data',
-   'model') DeviceMesh over a one-rank NCCL group: a 2048-token prefill of
-   4 prompts (K5 32 launches, each on the rank's query heads) and 8 decode
+   shard, with that shard's split count, CTAs and clusters; llama3-8b at
+   full width (32 layers) on a (1, 1) ('data', 'model') DeviceMesh over a
+   one-rank NCCL group: a 2048-token prefill of 4 prompts (K5 32
+   launches, each on the rank's query heads) and 8 decode
    steps at 4 slots over a 4096-position cache (K4's shard mode 32
    launches a step, the unsharded K4 none), tokens equal to the
    ShardCtx.single() path's and logits within 0.25 of the plain path's,
@@ -251,6 +258,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_partial,
     decode_attention_partial_plain, decode_attention_plain,
     merge_decode_partials)
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    kernel as DK)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
     flash_attention_fwd, flash_attention_lse_plain, flash_attention_plain)
@@ -372,8 +381,9 @@ def time_ms(fn, iters: int = 20, reps: int = 3) -> float:
     """Device time of one ``fn`` call: ``iters`` calls captured in a CUDA
     graph, replayed ``reps`` times between CUDA events, so the host's
     per-call launch cost (Python, allocation, ctypes) is not in the
-    number. Warm-up calls on a side stream come first, so libraries that
-    plan or allocate on their first call (cuDNN) do it outside capture."""
+    number. Warm-up calls on the side stream the graph captures come
+    first, so libraries that plan or allocate on their first call (cuDNN,
+    K4's arrival counters, kept a stream) do it outside capture."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -382,7 +392,7 @@ def time_ms(fn, iters: int = 20, reps: int = 3) -> float:
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -484,6 +494,22 @@ def bound(nbytes: float, ops, dtype=None) -> dict:
                 bytes_ms=t_bytes, ops_ms=t_ops)
 
 
+def k4_geometry(B, S, Hkv, D, dtype, window=0) -> dict:
+    """K4's launch at a shape, as the wrapper picks it: splits a (sequence,
+    kv head), CTAs, and clusters (one a (sequence, kv head), or one a
+    CTA, merged through scratch: ``cluster_size``)."""
+    bf16 = dtype == torch.bfloat16
+    n = DK.split_count(B, S, Hkv, window, D, bf16)
+    ctas = n * B * Hkv
+    return dict(splits=n, ctas=ctas,
+                clusters=ctas // DK.cluster_size(n, B, Hkv, D, bf16))
+
+
+def _geometry_text(r) -> str:
+    return (f"splits={r['splits']} ctas={r['ctas']} "
+            f"clusters={r['clusters']}")
+
+
 def _randn(shape, dtype, gen):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
@@ -551,6 +577,11 @@ def softcap_library_times(rows: list) -> None:
             f"{r['library_err']:.3e} tol={r['tol']:.0e} (kernel_ms "
             f"{r['ms']:.4f}; sdpa without the softcap "
             f"{r['sdpa_without_softcap_ms']:.4f})")
+        if "splits" in r:
+            log(f"K4 {r['case']}: kernel_ms={r['ms']:.4f} flex_attention_ms="
+                f"{r['library_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
+                f"plain_ms={r['plain_ms']:.4f} {_geometry_text(r)} "
+                f"(kernel over flex {r['ms'] / r['library_ms']:.3f})")
     bad = [r["case"] for r in rows if r["library_err"] is not None and
            not r["library_err"] <= r["tol"]]
     if bad:
@@ -677,6 +708,7 @@ def decode_case(name, B, S, valid, dtype, gen, window=0, softcap=0.0,
         vl.numel() * 4
     return dict(kernel="decode_attention", case=name, max_abs_err=err,
                 scale=float(want.float().abs().max()), tol=ATOL[dtype], ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                **k4_geometry(B, S, Hkv, D, dtype, window),
                 library_ms=None if softcap else sdpa_ms, library_err=None,
                 softcap_effect=effect,
                 sdpa_without_softcap_ms=sdpa_ms if softcap else None,
@@ -724,6 +756,9 @@ def kernel_checks() -> dict:
         decode_case(f"gemma_B1_S{GEMMA_LONG + 1}_window4096_softcap50_D256_"
                     f"bf16", 1, GEMMA_LONG + 1, [GEMMA_LONG + 1], bf16, gen,
                     window=GEMMA_WINDOW, **gemma),
+        decode_case(f"gemma_B4_S{GEMMA_LONG + 1}_window4096_softcap50_D256_"
+                    f"bf16", 4, GEMMA_LONG + 1, [GEMMA_LONG + 1] * 4, bf16,
+                    gen, window=GEMMA_WINDOW, **gemma),
     ]
     check_attention_rows(rows)
     # the main path's shapes: a 17-token prompt (serve draws 4..23) and a
@@ -752,6 +787,8 @@ def check_attention_rows(rows: list) -> None:
             f"{lib} bound_ms={r['bound_ms']:.5f} ({r['bound_by']}; "
             f"bytes {r['bytes_ms']:.5f}, ops {r['ops_ms']:.5f})")
         if r["kernel"] == "decode_attention":
+            log(f"geometry decode_attention {r['case']}: "
+                f"{_geometry_text(r)}")
             log(f"kernels_per_call decode_attention {r['case']}: "
                 f"{r['device_kernels_per_call']} device kernels a call "
                 f"(torch.profiler) {r['device_kernel_names']}, "
@@ -1052,13 +1089,45 @@ def ssm_decode_step_ms(model, params, steps: int = 10) -> list:
     return out
 
 
+def long_decode_step(model, params, caches, nxt, pos: int,
+                     steps: int = 10) -> dict:
+    """The kernel path's decode step at position ``pos`` of a long cache,
+    repeated (each writes the same cache row): each synchronized step's
+    host wall time (ms), one ``torch.profiler`` pass's device-busy ms a
+    step, and K4's launches a step."""
+    from torch.profiler import ProfilerActivity, profile
+    posv = torch.tensor([pos], dtype=torch.int32, device=DEVICE)
+
+    def step():
+        model.decode_step(params, caches, nxt, posv)
+    step()
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    zero_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+    busy_ms, _ = busy_share(prof, "")
+    return dict(host_ms=host, device_ms=busy_ms / 3,
+                k4_launches=read_launches()["decode_attention"] / 3)
+
+
 def long_prompt_run(cfg, model, plain, params, length: int = LONG_PROMPT,
-                    controls=()) -> dict:
+                    controls=(), decode_steps: int = 0) -> dict:
     """One ``length``-token prompt (prefill + one decode step) through the
     kernel path and through the plain path on the same weights (and
     through each of ``controls``, (name, model) pairs): last position's
     logits of both steps, warm prefill wall times, and every kernel's
-    launches in each timed prefill ({path: {kernel: launches}})."""
+    launches in each timed prefill ({path: {kernel: launches}}). With
+    ``decode_steps`` the kernel path's decode step at the long cache is
+    also timed (``long_decode_step``)."""
     rng = np.random.default_rng(0)
     prompt = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (1, length)).astype(np.int32)).to(DEVICE)
@@ -1079,6 +1148,9 @@ def long_prompt_run(cfg, model, plain, params, length: int = LONG_PROMPT,
         logits1, _ = m.decode_step(params, caches, nxt, torch.tensor(
             [length], dtype=torch.int32, device=DEVICE))
         out[name] = (logits0.float(), logits1.float())
+        if name == "kernel" and decode_steps:
+            decode = long_decode_step(m, params, caches, nxt, length,
+                                      decode_steps)
         del caches
     torch.cuda.synchronize()
     errs = [float((a - b).abs().max())
@@ -1086,12 +1158,14 @@ def long_prompt_run(cfg, model, plain, params, length: int = LONG_PROMPT,
     same = [bool((a.argmax(-1) == b.argmax(-1)).all())
             for a, b in zip(out["kernel"], out["plain"])]
     return dict(errs=errs, same=same, scale=float(out["plain"][0].abs().max()),
-                prefill_ms=times, launches=launches, out=out)
+                prefill_ms=times, launches=launches, out=out,
+                **({"decode": decode} if decode_steps else {}))
 
 
 def attn_long_prompt_check(arch: str, length: int, k5_ms: float,
                            controls: dict | None = None,
-                           witness: str | None = None) -> dict:
+                           witness: str | None = None,
+                           decode_steps: int = 0) -> dict:
     """``arch`` at full width: one ``length``-token prompt through K5 and
     through the plain attention on the same weights (and through the plain
     path with each of ``controls``' config fields replaced; see
@@ -1105,7 +1179,8 @@ def attn_long_prompt_check(arch: str, length: int, k5_ms: float,
     r = long_prompt_run(cfg, model, plain, params, length,
                         [(name, build(dataclasses.replace(cfg, **kw),
                                       device="cuda", plain_kernels=True))
-                         for name, kw in (controls or {}).items()])
+                         for name, kw in (controls or {}).items()],
+                        decode_steps)
     errs, t = r["errs"], r["prefill_ms"]
     n = {path: k["flash_attention"] for path, k in r["launches"].items()}
     r["launches"] = n
@@ -1117,6 +1192,17 @@ def attn_long_prompt_check(arch: str, length: int, k5_ms: float,
         f"plain={t['plain']:.2f} flash_attention launches kernel="
         f"{n['kernel']} plain={n['plain']} K5 share of the kernel-path "
         f"prefill={share:.3f} ({k5_ms:.4f} ms over {n['kernel']} launches)")
+    if decode_steps:
+        d = r["decode"]
+        log(f"{arch} decode step at the {length + 1}-position cache (for "
+            f"context: host-bound): host_ms median="
+            f"{sorted(d['host_ms'])[len(d['host_ms']) // 2]:.3f} all="
+            f"{[round(x, 3) for x in d['host_ms']]} device_busy_ms="
+            f"{d['device_ms']:.4f} decode_attention launches a step="
+            f"{d['k4_launches']:.0f}")
+        if d["k4_launches"] != cfg.num_layers:
+            raise SystemExit(f"{arch} long decode step: decode_attention "
+                             f"launches {d['k4_launches']} a step")
     if max(errs) > LOGITS_ATOL or not all(math.isfinite(e) for e in errs):
         raise SystemExit(f"{arch} long prompt: K5-path logits disagree "
                          f"with the plain path")
@@ -1375,7 +1461,7 @@ def dense_configs_phase(chunked_args: list, gemma_rows: list) -> dict:
     # see it past the window)
     g_long = attn_long_prompt_check(
         "gemma2-2b", GEMMA_LONG, k5_ms, witness="window_removed",
-        controls={"window_removed": dict(local_window=0)})
+        controls={"window_removed": dict(local_window=0)}, decode_steps=10)
     mistral = serve_run("mistral-nemo-12b", "host_prefill", [])
     if not mistral["flash_attention"] or not mistral["decode_attention"]:
         raise SystemExit(f"mistral-nemo-12b serve: launches {mistral}")
@@ -2622,7 +2708,9 @@ def shard_case(name, B, S, valid, n, dtype, gen, Hq=32, Hkv=8, D=128,
         flex["flex"] = (qt, kt, vt, softcap, mask_mod, B, 1, L, wants[i])
     nbytes = (2 * q.numel() + 2 * rows * Hkv * D) * q.element_size() + \
         B * Hq * 4 + vl.numel() * 4
+    geometry = k4_geometry(B, L, Hkv, D, dtype, window)
     row = dict(kernel="decode_attention_partial", case=f"{name}_n{n}",
+               **geometry,
                shards=len(shards), empty_shard_rows=empty,
                max_abs_err=max(err, err_plain, err_whole),
                lse_err=lse_err, lse_tol=LSE_ATOL,
@@ -2640,7 +2728,8 @@ def shard_case(name, B, S, valid, n, dtype, gen, Hq=32, Hkv=8, D=128,
         f"{row['scale']:.3f}, tol {tol}) shard ms "
         f"{[round(t, 5) for t in shard_ms]} merge {merge_ms:.5f} ms; shard "
         f"{i}: plain {plain_ms:.4f} sdpa {sdpa_ms:.4f} bound "
-        f"{row['bound_ms']:.5f} ({row['bound_by']}); launches {launched}")
+        f"{row['bound_ms']:.5f} ({row['bound_by']}); launches {launched}; "
+        f"shard {i}: {_geometry_text(row)}")
     return row
 
 

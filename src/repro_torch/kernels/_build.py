@@ -57,7 +57,9 @@ def build_all(srcs=None) -> dict[Path, float]:
     report (registers, shared memory, spills) is kept beside each
     library as ``<lib>.log``."""
     srcs = [Path(s) for s in (srcs if srcs is not None else sources())]
-    todo = [s for s in srcs if not library_path(s).exists()]
+    # one nvcc a library: sources of equal text share one
+    todo = list({library_path(s): s for s in srcs
+                 if not library_path(s).exists()}.values())
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -3,14 +3,17 @@ and its plain PyTorch version.
 
 Port of ``repro.kernels.decode_attention`` (``_decode_kernel`` /
 ``decode_attention_pallas``). ``decode_attention`` launches the CUDA kernel
-in ``csrc/decode_attention.cu`` for CUDA tensors — one launch a call: a
-cluster of ``split_count`` CTAs a (sequence, kv head), each over the key
-range of the live keys it derives from ``valid_len`` on the device (bf16
-at D = 32, 64, 112 and 128 on the tensor cores, f32 and D = 256 in FFMA), merged
-through distributed shared memory — and uses ``decode_attention_plain`` for
-CPU tensors, the only case in which it does. On a CUDA tensor it launches
-the kernel or raises; under ``FakeTensorMode`` or on meta tensors it returns
-an output of the right shape and launches nothing (the dry run).
+in ``csrc/decode_attention.cu`` for CUDA tensors — one launch a call:
+``split_count`` CTAs a (sequence, kv head), each over the key range of the
+live keys it derives from ``valid_len`` on the device (bf16 on the tensor
+cores at every head dim, f32 in FFMA), merged through distributed shared
+memory within one cluster or, past one cluster (bf16 at D = 256:
+gemma2-2b's decode at a long cache), by the last CTA to arrive over the
+splits' partials in scratch — and uses
+``decode_attention_plain`` for CPU tensors, the only case in which it does.
+On a CUDA tensor it launches the kernel or raises; under ``FakeTensorMode``
+or on meta tensors it returns an output of the right shape and launches
+nothing (the dry run).
 
 ``decode_attention_partial`` is the kernel's shard mode, the body of
 ``models.attention.decode_attention_sharded`` on a mesh whose cache is
@@ -35,12 +38,22 @@ from repro_torch.kernels import _build, refuse_grad, shape_only, tally
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 HEAD_DIMS = (32, 64, 112, 128, 256)
 MAX_GROUP = 16        # query heads per kv head the kernel serves (one m16 tile)
-MAX_CLUSTER = 8       # CTAs a cluster (splits a (sequence, kv head)): portable
+MAX_CLUSTER = 8       # CTAs a cluster: the portable limit
+MAX_SPLITS = 128      # CTAs a (sequence, kv head), at most
 SPLIT_MIN_KEYS = 64   # cache positions a split, at least
 TARGET_CTAS = 264     # two CTAs per SM of the H100's 132
+WIDE_TARGET_CTAS = 132   # bf16 at D = 256: one CTA an SM (~140 KB each)
+# bf16 at D = 256: CTAs the card placed at once in clusters of 4 or 8, at
+# one CTA an SM (scripts/exec_decode_turns.py's smid and timeline)
+CLUSTER_WAVE_CTAS = 120
 NEG_INF = -1e30
 
 _lib: Optional[ctypes.CDLL] = None
+# arrival counters of launches with more splits than one cluster holds,
+# by (device, stream); replaced ones are kept, since a captured CUDA graph
+# holds their address
+_counters: dict = {}
+_retired: list = []
 
 
 def library() -> ctypes.CDLL:
@@ -50,11 +63,12 @@ def library() -> ctypes.CDLL:
         lib = _build.load(SOURCE)
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.k4_decode_attention.argtypes = [
-            vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf, ci, cf, vp]
+            vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cf,
+            ci, cf, vp]
         lib.k4_decode_attention.restype = ci
         lib.k4_decode_attention_shard.argtypes = [
-            vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf, ci, cf,
-            ci, ci, vp]
+            vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
+            cf, ci, cf, ci, ci, vp]
         lib.k4_decode_attention_shard.restype = ci
         lib.k4_error_string.argtypes = [ci]
         lib.k4_error_string.restype = ctypes.c_char_p
@@ -87,14 +101,58 @@ def decode_attention_plain(q, k_cache, v_cache, valid_len, *,
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
 
 
-def split_count(B: int, S: int, Hkv: int, window: int = 0) -> int:
-    """Splits (CTAs of one cluster) a (sequence, kv head): enough that the
-    B*Hkv clusters come near ``TARGET_CTAS`` CTAs, at most ``MAX_CLUSTER``,
-    and no more than the live keys a sequence can have (S, or the window
-    when it is shorter) give ``SPLIT_MIN_KEYS`` each."""
+def split_count(B: int, S: int, Hkv: int, window: int = 0, D: int = 128,
+                bf16: bool = True) -> int:
+    """Splits (CTAs) a (sequence, kv head), no more than the live keys a
+    sequence can have (S, or the window when it is shorter) give
+    ``SPLIT_MIN_KEYS`` each. bf16 at D = 256 (one CTA an SM): as many as
+    keep the B*Hkv pairs' CTAs within ``WIDE_TARGET_CTAS`` (one wave),
+    even past one cluster, at most ``MAX_SPLITS``. Else enough that the
+    pairs come near ``TARGET_CTAS``, at most one cluster of
+    ``MAX_CLUSTER``."""
     live = min(S, window) if window > 0 else S
-    return max(1, min(MAX_CLUSTER, -(-TARGET_CTAS // (B * Hkv)),
-                      -(-live // SPLIT_MIN_KEYS)))
+    by_keys = -(-live // SPLIT_MIN_KEYS)
+    if bf16 and D == 256:
+        return max(1, min(by_keys, WIDE_TARGET_CTAS // (B * Hkv),
+                          MAX_SPLITS))
+    return max(1, min(MAX_CLUSTER, -(-TARGET_CTAS // (B * Hkv)), by_keys))
+
+
+def cluster_size(n_split: int, B: int = 1, Hkv: int = 1, D: int = 128,
+                 bf16: bool = True) -> int:
+    """CTAs a cluster: all ``n_split`` up to ``MAX_CLUSTER`` (merged
+    through distributed shared memory), else one (merged through
+    scratch by the last CTA to arrive). bf16 at D = 256 also takes
+    clusters of one where its B*Hkv*n_split CTAs outnumber
+    ``CLUSTER_WAVE_CTAS``: in clusters the rest would wait for a second
+    wave."""
+    if n_split > MAX_CLUSTER or (bf16 and D == 256 and
+                                 B * Hkv * n_split > CLUSTER_WAVE_CTAS):
+        return 1
+    return n_split
+
+
+def _arrival_counters(device, stream, n: int) -> torch.Tensor:
+    """At least ``n`` int32 counters for launches on ``stream`` of
+    ``device``, zero before a launch and left zero by it (the last CTA to
+    arrive resets its own). One set a stream, so the launches that share
+    them run one at a time, in stream order; a CUDA graph keeps the set
+    of the stream it was captured on. A set is made and zeroed eagerly:
+    under capture the zeroing would only be recorded, so a stream that
+    has none yet (or too few) raises there; one eager call on it first
+    makes them."""
+    key = (device.index, stream.cuda_stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "decode_attention: no arrival counters for this stream yet; "
+                "call it once on the stream before capturing a CUDA graph")
+        if buf is not None:
+            _retired.append(buf)
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
 
 
 def _check(q, k, v, valid_len) -> None:
@@ -135,8 +193,10 @@ def decode_attention(q, k_cache, v_cache, valid_len, *,
                      attn_softcap: float = 0.0, window: int = 0):
     """q: (B,1,Hq,D); caches: (B,S,Hkv,D); valid_len: (B,) int32, >= 1 ->
     (B,1,Hq,D). CUDA tensors launch the Hopper kernel on the current
-    stream (one launch, no synchronization, no scratch); CPU tensors take
-    the plain version. ``decode_attention.launches`` counts launches."""
+    stream (one launch, no synchronization; f32 scratch for the splits'
+    partials only past one cluster a (sequence, kv head)); CPU
+    tensors take the plain version. ``decode_attention.launches`` counts
+    launches."""
     refuse_grad("decode_attention", q, k_cache, v_cache)
     if shape_only(q, k_cache, v_cache):
         out = torch.empty_like(q)
@@ -164,25 +224,36 @@ def _launch(name, q, k, v, valid_len, attn_softcap, window, shard=None):
     B, S, Hkv, D = k.shape
     Hq = q.shape[2]
     window = int(window or 0)
-    out = torch.empty_like(q)
-    common = (int(q.dtype == torch.bfloat16), split_count(B, S, Hkv, window),
-              float(attn_softcap or 0.0), window, 1.0 / math.sqrt(D))
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_len.data_ptr(),
-            out.data_ptr())
-    lse = None
-    if shard is None:
-        err = library().k4_decode_attention(*ptrs, B, S, Hq, Hkv, D, *common,
-                                            stream)
-    else:
+    if shard is not None:
         off, seq_len = shard
         if not (0 <= off and off + S <= seq_len):
             raise ValueError(f"shard [{off}, {off + S}) lies outside a "
                              f"cache of {seq_len}")
+    bf16 = q.dtype == torch.bfloat16
+    n_split = split_count(B, S, Hkv, window, D, bf16)
+    cluster = cluster_size(n_split, B, Hkv, D, bf16)
+    stream = torch.cuda.current_stream(q.device)
+    out = torch.empty_like(q)
+    work = (0, 0)                     # scratch and arrival counters
+    if n_split > cluster:
+        counters = _arrival_counters(q.device, stream, B * Hkv)
+        scratch = torch.empty(B * Hkv * n_split * (Hq // Hkv) * (D + 4),
+                              dtype=torch.float32, device=q.device)
+        work = (scratch.data_ptr(), counters.data_ptr())
+    common = (int(bf16), n_split, cluster, float(attn_softcap or 0.0),
+              window, 1.0 / math.sqrt(D))
+    stream = stream.cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_len.data_ptr(),
+            out.data_ptr())
+    lse = None
+    if shard is None:
+        err = library().k4_decode_attention(*ptrs, *work, B, S, Hq, Hkv, D,
+                                            *common, stream)
+    else:
         lse = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
         err = library().k4_decode_attention_shard(
-            *ptrs, lse.data_ptr(), B, S, Hq, Hkv, D, *common, int(off),
-            int(seq_len), stream)
+            *ptrs, lse.data_ptr(), *work, B, S, Hq, Hkv, D, *common,
+            int(off), int(seq_len), stream)
     _raise_on(err, name)
     return out, lse
 
@@ -194,10 +265,13 @@ def _ops(q, k_cache) -> float:
     return 4.0 * B * q.shape[2] * S * D
 
 
+_ERRORS = {-1: "unsupported head dim", -2: "unsupported group size",
+           -3: "split count or cluster size out of range, or no scratch"}
+
+
 def _raise_on(err: int, name: str) -> None:
     if err:
-        msg = {-1: "unsupported head dim", -2: "unsupported group size"}.get(
-            err) or library().k4_error_string(err).decode()
+        msg = _ERRORS.get(err) or library().k4_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg}")
 
 

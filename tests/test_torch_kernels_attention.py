@@ -257,15 +257,31 @@ def split_ranges(valid_len, S: int, window: int, n_split: int):
     return a, e
 
 
+def _merge_partials(m, l, acc, dim: int):
+    """decode_attention_sharded's merge of partials along ``dim`` (m, l:
+    (..., Hq); acc: (..., Hq, D)): m = max, c = exp(m_s - m), 0 for empty
+    partials (m_s = -inf); returns the merged (m, sum(c * l),
+    sum(c * acc)), unnormalised."""
+    mg = m.amax(dim=dim)
+    mg_safe = torch.where(torch.isfinite(mg), mg, torch.zeros_like(mg))
+    c = torch.where(torch.isfinite(m), torch.exp(m - mg_safe.unsqueeze(dim)),
+                    torch.zeros_like(m))
+    return mg, (c * l).sum(dim=dim), (c[..., None] * acc).sum(dim=dim)
+
+
 def decode_attention_split_plain(q, k_cache, v_cache, valid_len, n_split: int,
                                  *, attn_softcap: float = 0.0,
-                                 window: int = 0):
+                                 window: int = 0, cluster: int = None):
     """K4's algorithm in plain PyTorch: per-split partials (max,
     sum of exponentials, unnormalised output) in f32 over the ranges of
-    ``split_ranges``, then the merge every CTA of a cluster does
-    (decode_attention_sharded's): m = max over splits, c = exp(m_s - m),
-    0 for empty splits, out = sum(c * acc) / max(sum(c * l), 1e-30).
-    Shapes as ``decode_attention_plain``."""
+    ``split_ranges``; the merge every CTA of a cluster does
+    (decode_attention_sharded's: m = max over splits, c = exp(m_s - m), 0
+    for empty splits) over each cluster of ``cluster`` consecutive splits
+    (``DK.cluster_size`` at the shape by default: all of them, or one);
+    then, where there are several clusters, the
+    same merge over the clusters' partials in order (the last CTA's to
+    arrive, in the kernel); out = acc / max(l, 1e-30). Shapes as
+    ``decode_attention_plain``."""
     B, S, Hkv, D = k_cache.shape
     G = q.shape[2] // Hkv
     kf = k_cache.float().repeat_interleave(G, dim=2)
@@ -285,11 +301,14 @@ def decode_attention_split_plain(q, k_cache, v_cache, valid_len, n_split: int,
                     torch.zeros_like(ss))
     l = p.sum(dim=-1)
     acc = torch.einsum("bnhk,bkhd->bnhd", p, vf)
-    mg = m.amax(dim=1, keepdim=True)
-    mg = torch.where(torch.isfinite(mg), mg, torch.zeros_like(mg))
-    c = torch.where(torch.isfinite(m), torch.exp(m - mg), torch.zeros_like(m))
-    o = (c[..., None] * acc).sum(dim=1) / \
-        (c * l).sum(dim=1).clamp(min=1e-30)[..., None]
+    cluster = cluster or DK.cluster_size(n_split, B, Hkv, D,
+                                         q.dtype == torch.bfloat16)
+    Hq = q.shape[2]
+    m, l, acc = _merge_partials(m.reshape(B, -1, cluster, Hq),
+                                l.reshape(B, -1, cluster, Hq),
+                                acc.reshape(B, -1, cluster, Hq, D), dim=2)
+    _, l, acc = _merge_partials(m, l, acc, dim=1)
+    o = acc / l.clamp(min=1e-30)[..., None]
     return o[:, None].to(q.dtype)
 
 
@@ -304,6 +323,20 @@ SPLIT_CASES = {
     "softcap_n7": (2, 32, 4, 2, 32, [5, 32], 7, dict(attn_softcap=5.0)),
     "window_softcap_n1": (2, 40, 4, 4, 32, [40, 9], 1,
                           dict(window=16, attn_softcap=20.0)),
+    # gemma2-like (D = 256, G = 2, a window, softcap) cut down, with the
+    # split counts of bf16 D = 256 past one cluster: one cluster (1, 8),
+    # then 9, 33 and 64 partials merged through scratch; short sequences
+    # leave splits empty
+    "d256_window_softcap_n1": (2, 160, 4, 2, 256, [160, 37], 1,
+                               dict(window=96, attn_softcap=50.0)),
+    "d256_window_softcap_n8": (2, 160, 4, 2, 256, [160, 37], 8,
+                               dict(window=96, attn_softcap=50.0)),
+    "d256_window_softcap_n9": (2, 160, 4, 2, 256, [160, 37], 9,
+                               dict(window=96, attn_softcap=50.0)),
+    "d256_window_softcap_n33": (2, 160, 4, 2, 256, [160, 5], 33,
+                                dict(window=96, attn_softcap=50.0)),
+    "d256_window_softcap_n64": (3, 160, 4, 2, 256, [160, 20, 1], 64,
+                                dict(window=96, attn_softcap=50.0)),
 }
 
 
@@ -347,39 +380,85 @@ def test_decode_split_ranges_cover_the_live_keys_evenly():
 
 def test_decode_split_count_and_cuda_geometry():
     """Every K4 instance asks for no more dynamic shared memory than a block
-    may opt into at the largest group. FFMA (f32, and bf16 at D = 256): the
-    ring of its cp.async stages, then q, the probabilities and the partial
-    the cluster merge reads; tiles are whole 32-key warps. Tensor cores
-    (bf16 at D = 32, 64, 112 and 128): the ring, or the warps' partials and the
-    CTA's merged one laid over it once it has drained; 16 keys a warp, rows padded so the 8 rows of an
-    ldmatrix read fall on distinct banks. Rings have >= 2 stages, padded
-    rows keep 16-byte copies aligned. Clusters stay within the portable 8
-    CTAs, and the wrapper's split count never leaves [1, MAX_CLUSTER]; at
-    the serve path's long cache (llama3-8b's 32 sequence x kv-head pairs)
-    it makes two CTAs an SM."""
+    may opt into at the largest group. FFMA (f32 only; bf16 at D = 256 has
+    left it for the tensor cores): the ring of its cp.async stages, then q,
+    the probabilities and the partial the cluster merge reads; tiles are
+    whole 32-key warps. Tensor cores (bf16 at D = 32, 64, 112, 128 and 256):
+    the ring (at D = 256 with the slabs' score exchange after it), or the
+    warps' partials and the CTA's merged one laid over it once it has
+    drained; 16 keys a slab, rows padded so the 8 rows of an ldmatrix read
+    fall on distinct banks. Rings have >= 2 stages, padded rows keep
+    16-byte copies aligned; D = 256's warps (two a 16-key slab, each with
+    half of O's dims) fit a block. Clusters stay within
+    the portable 8 CTAs: all the splits, or one CTA each past that. The
+    split count stays in [1, MAX_CLUSTER] except for bf16 at D = 256,
+    whose CTAs (one an SM: two do not fit its shared memory) may be more
+    than one cluster holds, at most MAX_SPLITS, but never more than
+    WIDE_TARGET_CTAS in all; no count exceeds the live keys over
+    SPLIT_MIN_KEYS; gemma2-2b's decode over its 4096 window (1 sequence x
+    4 kv heads) takes more CTAs than one cluster holds. At the serve
+    path's long cache (llama3-8b's 32 sequence x kv-head pairs) the split
+    count makes two CTAs an SM."""
     k = _cuda_constants(DK.SOURCE)
     assert k["MAX_CLUSTER"] == DK.MAX_CLUSTER <= 8
+    assert k["MAX_SPLITS"] == DK.MAX_SPLITS
+    assert k["MAX_WARPS"] == k["MMA_WARPS"] * k["DIM_SPLIT_D256"] <= 32
+    assert 256 // 8 // k["DIM_SPLIT_D256"] % 2 == 0   # n8 tiles in pairs
     assert k["MAX_G"] == DK.MAX_GROUP <= 16
-    ffma = [("BF16", 2, 256)] + [("F32", 4, d) for d in DK.HEAD_DIMS]
-    for dtype, size, d in ffma:
-        bk, stages = k[f"BK_{dtype}_D{d}"], k[f"STAGES_{dtype}_D{d}"]
+    assert "BK_BF16_D256" not in k and "STAGES_BF16_D256" not in k
+    for d in DK.HEAD_DIMS:
+        bk, stages = k[f"BK_F32_D{d}"], k[f"STAGES_F32_D{d}"]
         assert bk % 32 == 0 and 32 <= bk <= 64 and stages >= 2
-        kstride = d + 16 // size
-        ring = stages * bk * (kstride + d) * size
+        kstride = d + 4
+        ring = stages * bk * (kstride + d) * 4
         extra = k["MAX_G"] * (2 * d + bk + 2) * 4
-        assert ring + extra <= H100_SMEM_OPTIN, (dtype, d)
-        assert (kstride * size) % 16 == 0
+        assert ring + extra <= H100_SMEM_OPTIN, d
+        assert (kstride * 4) % 16 == 0
     assert k["MMA_BK"] == 16 * k["MMA_WARPS"]
-    for d in (32, 64, 112, 128):
+    mma_bytes = {}
+    for d in DK.HEAD_DIMS:
         stages = k[f"STAGES_MMA_D{d}"]
         row = (d + 8) * 2
         ring = stages * 2 * k["MMA_BK"] * row
+        if d == 256:                            # the slabs' score exchange
+            ring += k["MMA_WARPS"] * k["DIM_SPLIT_D256"] * 32 * 8 * 4
         part = (k["MMA_WARPS"] + 1) * k["MAX_G"] * (d + 2) * 4
         assert stages >= 2 and max(ring, part) <= H100_SMEM_OPTIN
+        mma_bytes[d] = ring
         assert row % 16 == 0
         banks = {(r * row // 4 + w) % 32 for r in range(8) for w in range(4)}
         assert len(banks) == 32, d
-    for B, S, Hkv in ((4, 128, 8), (4, 4096, 8), (1, 17, 8), (64, 8192, 8),
-                      (1, 1, 1), (2, 300, 16)):
-        assert 1 <= DK.split_count(B, S, Hkv) <= DK.MAX_CLUSTER
+    # one CTA an SM at D = 256 (the SM's 228 KB hold one), so the wide
+    # target is the SM count
+    assert 2 * (mma_bytes[256] + 1024) > 228 * 1024   # 1 KB reserved a CTA
+    assert DK.WIDE_TARGET_CTAS == 132
+    for n in range(1, DK.MAX_SPLITS + 1):
+        assert DK.cluster_size(n) == (n if n <= DK.MAX_CLUSTER else 1)
+        for B, Hkv in ((1, 4), (4, 4), (16, 8)):
+            c = DK.cluster_size(n, B, Hkv, 256, True)
+            assert c in (1, n) and (c == 1 or B * Hkv * n <=
+                                    DK.CLUSTER_WAVE_CTAS)
+    # gemma2-2b's 4-slot decode at its long cache: 128 CTAs of one an SM,
+    # in clusters of one; at the 128-position cache one cluster of 2
+    assert DK.split_count(4, 4609, 4, 4096, 256, True) == 8
+    assert DK.cluster_size(8, 4, 4, 256, True) == 1
+    assert DK.cluster_size(2, 4, 4, 256, True) == 2
+    assert DK.cluster_size(8, 4, 4, 128, True) == 8
+    for B, S, Hkv, window in ((4, 128, 8, 0), (4, 4096, 8, 0), (1, 17, 8, 0),
+                              (64, 8192, 8, 0), (1, 1, 1, 0), (2, 300, 16, 0),
+                              (1, 4609, 4, 4096), (4, 128, 4, 4096),
+                              (1, 2305, 4, 4096), (1, 1153, 4, 4096),
+                              (1, 289, 4, 4096), (4, 4096, 2, 0),
+                              (1, 100000, 1, 0), (2, 600, 1, 0)):
+        live = min(S, window) if window else S
+        for D in DK.HEAD_DIMS:
+            for bf16 in (True, False):
+                n = DK.split_count(B, S, Hkv, window, D, bf16)
+                assert 1 <= n <= max(1, -(-live // DK.SPLIT_MIN_KEYS))
+                assert n <= DK.MAX_SPLITS
+                if bf16 and D == 256:
+                    assert n == 1 or B * Hkv * n <= DK.WIDE_TARGET_CTAS
+                else:
+                    assert n <= DK.MAX_CLUSTER
     assert DK.split_count(4, 4096, 8) * 4 * 8 >= 2 * 128
+    assert DK.split_count(1, 4609, 4, 4096, 256, True) > DK.MAX_CLUSTER

@@ -243,6 +243,8 @@ GPU_DECODE = [
      dict(window=4096, attn_softcap=50.0)),
     (1, 4609, 8, 4, 256, torch.bfloat16, [4609],
      dict(window=4096, attn_softcap=50.0)),
+    (4, 4609, 8, 4, 256, torch.bfloat16, [4609, 4097, 2000, 1],
+     dict(window=4096, attn_softcap=50.0)),
     # zamba2-7b's shared block at D = 112 (32/32 heads): the serve shape,
     # B*Hkv = 128 clusters, ragged; a long cache with a window; f32 (28
     # lanes of 4 dims in P.V). whisper-tiny's decode cross-attention: every
@@ -304,6 +306,10 @@ GPU_DECODE_SHARDS = [
     (2, 256, 16, 2, 128, torch.float32, [256, 100], 2, {}),
     (2, 256, 8, 1, 256, torch.float32, [256, 200], 2, dict(window=64)),
     (2, 256, 8, 1, 112, torch.float32, [256, 31], 4, {}),
+    # bf16 D = 256 at G = 16, ragged: 1024-position shards of 2 kv heads
+    # take 16 splits a (sequence, kv head), past one cluster (merged
+    # through scratch), empty ones included
+    (4, 4096, 32, 2, 256, torch.bfloat16, [3, 1000, 2049, 4096], 4, {}),
 ]
 
 
@@ -359,9 +365,11 @@ def test_decode_shard_mode_empty_shard_on_card(cuda, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_split", [1, 3, 5, 7, 8])
+@pytest.mark.parametrize("n_split", [1, 3, 5, 7, 8, 9, 12, 33])
 def test_decode_kernel_split_counts_on_card(cuda, monkeypatch, n_split):
-    """Every cluster size, none of which divides S or the live lengths."""
+    """Every cluster size, none of which divides S or the live lengths, and
+    split counts past one cluster (9, 12 and 33 CTAs, merged through
+    scratch)."""
     monkeypatch.setattr(DK, "split_count", lambda *shape: n_split)
     q, k, v = [t.to(cuda, torch.bfloat16)
                for t in _t(*_qkv(8, 2, 1001, 16, 4, 128, Sq=1))]
@@ -381,7 +389,7 @@ def test_decode_launcher_raises_when_the_cluster_is_refused(cuda,
     """A cluster the card refuses (16 CTAs, past the portable 8, asked
     without the non-portable attribute) makes the wrapper raise and launch
     nothing: no count, the output it allocated unwritten. The next call
-    with the wrapper's own split count runs."""
+    with the wrapper's own split count and cluster size runs."""
     q, k, v = [t.to(cuda, torch.bfloat16)
                for t in _t(*_qkv(9, 4, 512, 32, 8, 128, Sq=1))]
     vl = torch.tensor([512, 100, 7, 1], dtype=torch.int32, device=cuda)
@@ -393,15 +401,17 @@ def test_decode_launcher_raises_when_the_cluster_is_refused(cuda,
         return out
 
     monkeypatch.setattr(DK.torch, "empty_like", empty_like)
-    own = DK.split_count
+    own = DK.split_count, DK.cluster_size
     monkeypatch.setattr(DK, "split_count", lambda *shape: 16)
+    monkeypatch.setattr(DK, "cluster_size", lambda n, *shape: n)
     before = decode_attention.launches
     with pytest.raises(RuntimeError, match="decode_attention"):
         decode_attention(q, k, v, vl)
     torch.cuda.synchronize()
     assert decode_attention.launches == before
     assert len(sentinel) == 1 and bool((sentinel[0] == 7.0).all())
-    monkeypatch.setattr(DK, "split_count", own)
+    monkeypatch.setattr(DK, "split_count", own[0])
+    monkeypatch.setattr(DK, "cluster_size", own[1])
     got = decode_attention(q, k, v, vl)
     torch.cuda.synchronize()
     assert decode_attention.launches == before + 1
@@ -409,6 +419,160 @@ def test_decode_launcher_raises_when_the_cluster_is_refused(cuda,
     torch.testing.assert_close(got.float(),
                                decode_attention_plain(q, k, v, vl).float(),
                                atol=BF16_ATOL, rtol=0)
+
+
+# gemma2-2b's K4 shapes (D = 256, GQA 8/4, softcap 50, window 4096): the
+# 4-slot decode, the long cache past the window, and its shard mode
+GEMMA_DECODE = [
+    # (B, S, valid, n_shards or None for the whole-cache mode)
+    (4, 128, [128, 1, 77, 64], None),
+    (1, 4609, [4609], None),
+    (4, 4609, [4609] * 4, None),
+    (1, 4609, [4609], 2),
+    (1, 4609, [4609], 4),
+    (1, 4609, [4609], 16),
+]
+
+
+def _gemma_decode(cuda, B, S, valid, n, seed=11):
+    """One call of K4 at a GEMMA_DECODE row: the output, or every shard's
+    (o, lse)."""
+    q, k, v = _qkv(seed, B, S, 8, 4, 256, Sq=1)
+    kw = dict(window=4096, attn_softcap=50.0)
+    q, k, v = [t.to(cuda, torch.bfloat16) for t in _t(_capped(q, kw), k, v)]
+    vl = torch.tensor(valid, dtype=torch.int32, device=cuda)
+    if n is None:
+        return lambda: [decode_attention(q, k, v, vl, **kw)]
+    L = -(-S // n)
+    shards = [(o, k[:, o:o + L].contiguous(), v[:, o:o + L].contiguous())
+              for o in range(0, S, L)]
+    return lambda: [t for o, ks, vs in shards
+                    for t in decode_attention_partial(q, ks, vs, vl, off=o,
+                                                      seq_len=S, **kw)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,valid,n", GEMMA_DECODE)
+def test_decode_gemma2_repeats_bit_for_bit_on_card(cuda, B, S, valid, n):
+    """K4 at gemma2-2b's shapes gives the same bits on every call: each
+    split's, each cluster's and the clusters' merges sum in a fixed order,
+    whichever cluster arrives last."""
+    call = _gemma_decode(cuda, B, S, valid, n)
+    first = call()
+    for _ in range(5):
+        again = call()
+        torch.cuda.synchronize()
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_decode_gemma2_long_row_spans_several_clusters_on_card(
+        cuda, monkeypatch):
+    """gemma2-2b's decode over its 4096 window (B = 1, 4 kv heads) runs more
+    CTAs a (sequence, kv head) than one cluster holds: the wrapper asks for
+    scratch of one partial a CTA, every CTA writes its partial there (the
+    scratch starts as NaN; each split's m is finite, since every split has
+    live keys), the arrival counters are 0 again after the call, and the
+    output agrees with the plain version."""
+    n_split = DK.split_count(1, 4609, 4, 4096, 256, True)
+    assert n_split > DK.MAX_CLUSTER and DK.cluster_size(n_split) == 1
+    scratch = []
+    empty = torch.empty
+
+    def nan_empty(*shape, **kw):
+        t = empty(*shape, **kw)
+        if t.dtype == torch.float32 and t.is_cuda:
+            t.fill_(float("nan"))
+            scratch.append(t)
+        return t
+
+    call = _gemma_decode(cuda, 1, 4609, [4609], None)
+    monkeypatch.setattr(DK.torch, "empty", nan_empty)
+    before = decode_attention.launches
+    (got,) = call()
+    torch.cuda.synchronize()
+    monkeypatch.setattr(DK.torch, "empty", empty)
+    assert decode_attention.launches == before + 1
+    assert len(scratch) == 1
+    part = scratch[0].view(4, n_split, 2 * (256 + 4))
+    assert bool(torch.isfinite(part[..., 512:516]).all())   # m and l
+    assert bool(torch.isfinite(part[..., :516]).all())
+    assert int(_counters_of(torch.cuda.current_stream(cuda)).abs().sum()) \
+        == 0
+    torch.testing.assert_close(got.float(), _gemma_long_want(cuda, 11),
+                               atol=BF16_ATOL, rtol=0)
+
+
+def _counters_of(stream):
+    return DK._counters[(stream.device.index, stream.cuda_stream)]
+
+
+def _gemma_long_want(cuda, seed):
+    """The plain version of ``_gemma_decode``'s long row at ``seed``."""
+    q, k, v = _qkv(seed, 1, 4609, 8, 4, 256, Sq=1)
+    kw = dict(window=4096, attn_softcap=50.0)
+    q, k, v = [t.to(cuda, torch.bfloat16) for t in _t(_capped(q, kw), k, v)]
+    vl = torch.tensor([4609], dtype=torch.int32, device=cuda)
+    return decode_attention_plain(q, k, v, vl, **kw).float()
+
+
+@pytest.mark.gpu
+def test_decode_past_one_cluster_on_two_streams_on_card(cuda):
+    """gemma2-2b's long row (merged through scratch by arrival counters)
+    called on two streams at once, in turns: every call on each stream
+    agrees with the plain version and repeats bit for bit, and each
+    stream's own counters are 0 after."""
+    calls = [_gemma_decode(cuda, 1, 4609, [4609], None, seed=s)
+             for s in (11, 12)]
+    streams = [torch.cuda.Stream(cuda) for _ in calls]
+    assert streams[0].cuda_stream != streams[1].cuda_stream
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(cuda))
+    outs = [[], []]
+    for _ in range(8):
+        for i, (call, st) in enumerate(zip(calls, streams)):
+            with torch.cuda.stream(st):
+                outs[i] += call()
+    torch.cuda.synchronize()
+    for seed, st, got in zip((11, 12), streams, outs):
+        want = _gemma_long_want(cuda, seed)
+        for o in got:
+            assert torch.equal(o, got[0])
+        torch.testing.assert_close(got[0].float(), want, atol=BF16_ATOL,
+                                   rtol=0)
+        assert int(_counters_of(st).abs().sum()) == 0
+    assert _counters_of(streams[0]).data_ptr() != \
+        _counters_of(streams[1]).data_ptr()
+
+
+@pytest.mark.gpu
+def test_decode_counters_are_not_made_under_capture_on_card(cuda,
+                                                            monkeypatch):
+    """A call past one cluster on a stream without arrival counters raises
+    under CUDA-graph capture (their zeroing would only be recorded) and
+    launches nothing; after one eager call on that stream a captured graph
+    of it replays right and leaves the counters 0."""
+    monkeypatch.setattr(DK, "_counters", {})
+    call = _gemma_decode(cuda, 1, 4609, [4609], None)
+    st = torch.cuda.Stream(cuda)
+    st.wait_stream(torch.cuda.current_stream(cuda))
+    before = decode_attention.launches
+    with pytest.raises(RuntimeError, match="arrival counters"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=st):
+            call()
+    assert decode_attention.launches == before
+    with torch.cuda.stream(st):
+        call()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=st):
+        (got,) = call()
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), _gemma_long_want(cuda, 11),
+                               atol=BF16_ATOL, rtol=0)
+    assert int(_counters_of(st).abs().sum()) == 0
 
 
 # the training pair (K5 with lse, K5-bwd) at every train-capable family's
