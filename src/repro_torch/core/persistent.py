@@ -55,7 +55,7 @@ import torch
 
 from repro_torch.core import mailbox as mb
 from repro_torch.core.telemetry import (EV_CHUNK_RETIRE, EV_RT_RETIRE,
-                                        EV_RT_TRIGGER, TraceCollector)
+                                        EV_RT_TRIGGER, TraceCollector, span)
 from repro_torch.core.telemetry.events import now_us
 from repro_torch.core.wcet import WcetTracker
 
@@ -206,13 +206,17 @@ class _Block:
     back at materialization. ``held`` keeps host buffers alive until the
     block's device work is done (the pinned staging its copies read from).
     ``t_trigger_us`` anchors the launch's host window for tick
-    calibration."""
+    calibration. ``descs`` holds the descriptors as triggered (one, or a
+    ring's list), whose opcodes name the wait spans; None where the runtime
+    keeps none."""
 
     __slots__ = ("results", "acks", "n", "idx", "stacked", "host_acks",
-                 "prof", "host_prof", "t_trigger_us", "event", "held")
+                 "prof", "host_prof", "t_trigger_us", "event", "held",
+                 "descs")
 
     def __init__(self, results, acks, n: int, stacked: bool,
-                 prof=None, t_trigger_us: int = 0, event=None, held=None):
+                 prof=None, t_trigger_us: int = 0, event=None, held=None,
+                 descs=None):
         self.results = results
         self.acks = acks
         self.n = n
@@ -224,6 +228,7 @@ class _Block:
         self.t_trigger_us = t_trigger_us
         self.event = event
         self.held = held
+        self.descs = descs
 
     @property
     def remaining(self) -> int:
@@ -302,6 +307,22 @@ class _PipelinedRuntime:
     def _on_block_retired(self, blk: _Block) -> None:
         """Hook: the oldest block fully retired (subclass bookkeeping)."""
 
+    def _span_name(self, phase: str, descs) -> str:
+        """``repro_torch.rt.<phase>.<work>``: the work table's names of
+        ``descs``' opcodes (clamped into the table, as the step clamps
+        them), joined by ``+`` in ring order where they differ."""
+        last = len(self.work_names) - 1
+        works = dict.fromkeys(self.work_names[min(max(
+            PersistentRuntime._desc_fields(d)[1], 0), last)] for d in descs)
+        return f"repro_torch.rt.{phase}." + "+".join(works)
+
+    def _wait_span_name(self, blk: _Block) -> str:
+        """The wait span of ``blk``'s next item to retire."""
+        if blk.descs is None:
+            return "repro_torch.rt.wait"
+        return self._span_name("wait", (blk.descs[blk.idx] if blk.stacked
+                                        else blk.descs,))
+
     def ready(self) -> bool:
         """Non-blocking: has the OLDEST in-flight step finished on device?
         ``event.query()`` on CUDA; memoized until the block retires."""
@@ -357,7 +378,8 @@ class _PipelinedRuntime:
         readback); its remaining items then retire host-side."""
         assert self._inflight, "nothing in flight"
         blk = self._inflight[0]
-        with self.tracker.phase("wait"):
+        with self.tracker.phase("wait"), \
+                span(lambda: self._wait_span_name(blk)):
             first = blk.host_acks is None
             blk.materialize()
             if first:
@@ -653,7 +675,8 @@ class PersistentRuntime(_PipelinedRuntime):
                 f"in-flight pipeline full (max_inflight={self.max_inflight});"
                 " retire with wait()/poll() first")
         rid, opcode, chunk, n_chunks, enc = self._desc_fields(desc)
-        with self.tracker.phase("trigger"):
+        with self.tracker.phase("trigger"), \
+                span(lambda: self._span_name("trigger", (desc,))):
             dvec = self._staged.pop((rid, chunk), None)
             if dvec is not None:
                 self.staged_hits += 1          # served from the buffer
@@ -675,7 +698,8 @@ class PersistentRuntime(_PipelinedRuntime):
             self._inflight.append(_Block(result, from_gpu, 1, False,
                                          prof=prof,
                                          t_trigger_us=now_us(),
-                                         event=self._record_event()))
+                                         event=self._record_event(),
+                                         descs=desc))
         self.tracker.record_depth(self.inflight)
         if self.telemetry is not None:
             self.telemetry.emit(
@@ -704,7 +728,8 @@ class PersistentRuntime(_PipelinedRuntime):
         for base in range(0, len(descs), self.max_steps):
             block = descs[base:base + self.max_steps]
             ring = mb.descriptor_ring(block, self.max_steps)
-            with self.tracker.phase("trigger"):
+            with self.tracker.phase("trigger"), \
+                    span(lambda: self._span_name("trigger", block)):
                 profs = None
                 if self._profile:
                     (self._state, self._carries, self._tick, results, acks,
@@ -716,7 +741,7 @@ class PersistentRuntime(_PipelinedRuntime):
                 self._inflight.append(
                     _Block(results, acks, len(block), True, prof=profs,
                            t_trigger_us=now_us(),
-                           event=self._record_event()))
+                           event=self._record_event(), descs=block))
             self.doorbells += 1
             self.batched_steps += len(block)
             self.steps += len(block)

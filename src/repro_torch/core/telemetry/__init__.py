@@ -18,6 +18,9 @@ package is what makes both OBSERVABLE and CHECKED at runtime:
 * exporters — Chrome/Perfetto trace JSON and CSV
   (``TraceCollector.export_chrome`` / ``export_csv``), with device-
   stamped spans (``source=device``) on parallel per-cluster tracks;
+* :func:`span` — named host ranges on the serving path (poll, engine
+  step and prefill, runtime trigger and wait, model layer), recorded only
+  while a ``torch.profiler`` session runs, on the device trace's clock;
 * :class:`MetricsRegistry` / :class:`MetricsPump` — the continuous
   surface: named counters/gauges/histograms fed live from the flight
   recorder's device spans, per-cluster utilization/occupancy gauges,
@@ -47,6 +50,7 @@ from repro_torch.core.telemetry.metrics import (
 from repro_torch.core.telemetry.monitor import (
     BOUND_VIOLATION, DEADLINE_MISS, WCET_OVERRUN, BoundMonitor, Violation,
 )
+from repro_torch.core.telemetry.spans import span
 
 __all__ = [
     "BOUND_VIOLATION", "BoundMonitor", "Counter", "DEADLINE_MISS",
@@ -58,5 +62,5 @@ __all__ = [
     "EV_TRIGGER",
     "Event", "Gauge", "Histogram", "LogHistogram", "MetricsPump",
     "MetricsRegistry", "TraceCollector", "Violation", "WCET_OVERRUN",
-    "chrome_trace", "write_chrome", "write_csv",
+    "chrome_trace", "span", "write_chrome", "write_csv",
 ]

@@ -90,18 +90,5 @@ class WcetTracker:
     def worst(self, name: str) -> float:
         return self.stats[name].worst_ns
 
-    def jitter(self, name: str) -> float:
-        """worst − avg: the paper's predictability gap."""
-        s = self.stats[name]
-        return s.worst_ns - s.avg_ns
-
     def report(self) -> dict:
         return {k: v.as_dict() for k, v in self.stats.items()}
-
-    def csv_rows(self) -> list[str]:
-        rows = []
-        for k in sorted(self.stats):
-            s = self.stats[k]
-            rows.append(f"{self.name},{k},{s.count},{s.avg_ns:.0f},"
-                        f"{s.worst_ns:.0f},{s.std_ns:.0f}")
-        return rows

@@ -32,6 +32,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.core.persistent import tree_leaves, tree_map
+from repro_torch.core.telemetry import span
 from repro_torch.distributed.sharding import axes, replicating
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -254,9 +255,11 @@ def forward_stack(params, x, cfg, ctx, *, mode: str, pos,
         for i, (kind, opts) in enumerate(spec):
             key = f"blk{i}"
             cache_i = _layer(caches[key], li) if mode == "decode" else None
-            x, aux, nc = layer_apply(
-                _layer(params[key], li), x, cfg, ctx, kind, opts, mode=mode,
-                pos=pos, cache=cache_i, valid_len=valid_len, plain=plain)
+            p_i = _layer(params[key], li)
+            with span("repro_torch.model.layer"):
+                x, aux, nc = layer_apply(
+                    p_i, x, cfg, ctx, kind, opts, mode=mode, pos=pos,
+                    cache=cache_i, valid_len=valid_len, plain=plain)
             _merge_aux(aux_acc, aux)
             per_layer[key].append(nc)
     if mode == "decode":

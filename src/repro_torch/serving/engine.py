@@ -49,7 +49,7 @@ from repro_torch.core.dispatcher import Dispatcher, Ticket
 from repro_torch.core.persistent import PersistentRuntime, check_device
 from repro_torch.core.sched import (CRIT_HIGH, CRIT_LOW, BudgetedServerPolicy,
                                     ClassSpec, SchedPolicy)
-from repro_torch.core.telemetry import EV_ENGINE, TraceCollector
+from repro_torch.core.telemetry import EV_ENGINE, TraceCollector, span
 from repro_torch.core.wcet import WcetTracker
 from repro_torch.serving.kv_cache import (PH_DECODING, PH_FINISHED,
                                           SlotManager, extract_slot_caches,
@@ -364,13 +364,15 @@ class ServingEngine:
 
             ticket.on_complete(_chain)
         else:
-            batch = {"tokens": torch.from_numpy(prompt[None]).to(self.device)}
-            if extras:
-                batch.update({k: torch.from_numpy(np.asarray(v)[None]).to(
-                    self.device) for k, v in extras.items()})
-            logits, caches = self._prefill(batch, L)
-            first = torch.argmax(logits[0, -1, :]).to(torch.int32)
-            self._stage(caches, first, V + L, slot)
+            with span("repro_torch.engine.prefill", request_id):
+                batch = {"tokens":
+                         torch.from_numpy(prompt[None]).to(self.device)}
+                if extras:
+                    batch.update({k: torch.from_numpy(np.asarray(v)[None]).to(
+                        self.device) for k, v in extras.items()})
+                logits, caches = self._prefill(batch, L)
+                first = torch.argmax(logits[0, -1, :]).to(torch.int32)
+                self._stage(caches, first, V + L, slot)
             if tc is not None:
                 tc.emit(EV_ENGINE, cluster=self.cluster,
                         request_id=request_id, phase="host_prefill",
@@ -393,26 +395,26 @@ class ServingEngine:
         {slot: new_token} for DECODING slots. ``deadline_us`` gives the
         step a real EDF deadline; ``auto_free=False`` parks exhausted
         slots in phase ``finished`` instead of freeing them."""
-        desc = mb.WorkDescriptor(work_id=self._step_counter % 1024,
-                                 opcode=OP_DECODE,
-                                 request_id=self._step_counter,
-                                 deadline_us=deadline_us)
-        self._step_counter += 1
-        ticket = self.dispatcher.submit(desc, cluster=self.cluster,
-                                        admission=False)
-        toks = np.asarray(ticket.result())
-        out = {}
-        for i in self.slots.decoding_indices():
-            s = self.slots.slots[i]
-            t = int(toks[i])
-            s.generated.append(t)
-            s.length += 1
-            out[i] = t
-            if t == self.eos_id or s.length >= s.max_len:
-                if auto_free:
-                    self.slots.free(i)
-                else:
-                    s.phase = PH_FINISHED
+        rid = self._step_counter
+        with span("repro_torch.engine.step", rid):
+            desc = mb.WorkDescriptor(work_id=rid % 1024, opcode=OP_DECODE,
+                                     request_id=rid, deadline_us=deadline_us)
+            self._step_counter += 1
+            ticket = self.dispatcher.submit(desc, cluster=self.cluster,
+                                            admission=False)
+            toks = np.asarray(ticket.result())
+            out = {}
+            for i in self.slots.decoding_indices():
+                s = self.slots.slots[i]
+                t = int(toks[i])
+                s.generated.append(t)
+                s.length += 1
+                out[i] = t
+                if t == self.eos_id or s.length >= s.max_len:
+                    if auto_free:
+                        self.slots.free(i)
+                    else:
+                        s.phase = PH_FINISHED
         return out
 
     # ------------------------------------------------------------------

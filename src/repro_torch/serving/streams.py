@@ -46,7 +46,8 @@ import numpy as np
 from repro_torch.core.sched import CRIT_HIGH, CRIT_LOW
 from repro_torch.core.sched.admission import AdmissionError, edf_demand_test
 from repro_torch.core.system import WorkClass
-from repro_torch.core.telemetry import EV_CHUNK_RETIRE, EV_STREAM, TraceCollector
+from repro_torch.core.telemetry import (EV_CHUNK_RETIRE, EV_STREAM,
+                                        TraceCollector, span)
 from repro_torch.core.telemetry.events import now_us
 from repro_torch.serving.engine import OP_DECODE, OP_INSERT, OP_PREFILL
 from repro_torch.serving.kv_cache import PH_DECODING, PH_FINISHED
@@ -488,22 +489,23 @@ class StreamFrontend:
         """One serve iteration: flush deferred sheds, admit pending
         streams, run one decode step (or drive queued prefill work when
         nothing is decoding yet), then harvest stream transitions."""
-        self._flush_deferred_sheds()
-        self._admit_pending()
-        if self.engine.slots.decoding_indices():
-            # the decode step carries a REAL deadline so EDF lets it cut
-            # in ahead of deadline-free prefill chunks — this is the
-            # decode/prefill interleave
-            step_us, _, chunk_us = self._estimates()
-            deadline = int(now_us() + self.decode_deadline_factor
-                           * (step_us + chunk_us) + self.slack_us)
-            self.engine.step(deadline_us=deadline, auto_free=False)
-        elif self.dispatcher.queue_depth(self.engine.cluster) or \
-                self.dispatcher.inflight_depth(self.engine.cluster):
-            # nothing decoding yet: drive prefill/insert/release work so
-            # first inserts can land
-            self.dispatcher.pump(self.engine.cluster)
-        self._poll_transitions()
+        with span("repro_torch.streams.poll"):
+            self._flush_deferred_sheds()
+            self._admit_pending()
+            if self.engine.slots.decoding_indices():
+                # the decode step carries a REAL deadline so EDF lets it
+                # cut in ahead of deadline-free prefill chunks — this is
+                # the decode/prefill interleave
+                step_us, _, chunk_us = self._estimates()
+                deadline = int(now_us() + self.decode_deadline_factor
+                               * (step_us + chunk_us) + self.slack_us)
+                self.engine.step(deadline_us=deadline, auto_free=False)
+            elif self.dispatcher.queue_depth(self.engine.cluster) or \
+                    self.dispatcher.inflight_depth(self.engine.cluster):
+                # nothing decoding yet: drive prefill/insert/release work
+                # so first inserts can land
+                self.dispatcher.pump(self.engine.cluster)
+            self._poll_transitions()
 
     def serve(self, max_polls: int = 1_000_000) -> None:
         """Poll until every opened stream has closed."""
